@@ -1,16 +1,21 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (masklab_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
   1. card: prints ``nvidia-smi --query-gpu=name,power.limit``;
   2. build: compiles the three CUDA kernels from ``masklab_tpu_torch/csrc``;
   3. kernels: holds each kernel against its plain PyTorch version at the
-     main path's shapes (K2, K3 exact; K1 f32 within 2e-5, bf16 within 3
-     bf16 ulp) and times kernel, plain version and, where one exists, the
-     one PyTorch call computing the same function;
+     main path's shapes and at edge cases (K2, K3 exact; K1 f32 within
+     2e-5, bf16 within 3 bf16 ulp at operand scale) and times each kernel
+     at the main path's shapes: ``device_ms`` (= ``ms``), its own mean
+     duration on the device from ``torch.profiler``; ``call_ms``, CUDA
+     events around back-to-back wrapper calls, host work included; the
+     plain version and, where one exists, the one PyTorch call computing
+     the same function (``library_ms``); K3's device time split into the
+     bitmask build and the sweep;
   4. reference: a narrow model (width 32, depth 1, f32, 512 px) on the card
      against the same model on the CPU, where every kernel's plain version
      runs instead;
@@ -24,7 +29,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the repo.
+
+``--kernels-only`` runs phases 1-3 at the main path's shapes alone (no
+edge cases, no split of K3): copied into another tree of the repo, it
+times that tree's kernels the same way, for comparing two trees in one
+call.
 """
+import argparse
 import json
 import statistics
 import subprocess
@@ -43,6 +54,17 @@ SWEEP_CYCLES_PER_BOX = 30
 SWEEP_CYCLES_PER_KEEP = 30
 BATCH, SIZE, REQUESTS = 16, 512, 3
 DEVICE = 'cuda'
+K1_F32_ATOL = 2e-5             # f32 statistics summed in another order
+# bf16, in ulps at operand scale. Against the plain version: it rounds m1,
+# inv, scale, bias and four operations to bf16, and even the exactly rounded
+# result lies up to 4 ulp from it. Against the f64 reference: the kernel
+# rounds its f32 result once, so half an ulp plus the f32 statistics' error.
+K1_BF16_ULPS = 4.0
+K1_BF16_EXACT_ULPS = 0.51
+# K1 maps besides the main one, (n, Q, C) at G=16: batch edges, a longer
+# band (C=256), cg=3 (the block path) and a band too long for registers
+K1_EDGES = [(1, 196, 128), (7, 196, 128), (533, 196, 128), (7, 196, 256),
+            (7, 49, 48), (7, 784, 256)]
 
 
 def card_line() -> str:
@@ -53,7 +75,9 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+    """Mean time per call between CUDA events around ``iters`` back-to-back
+    calls: a call's host work counts wherever it is longer than the device
+    work it enqueues."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -65,6 +89,28 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int, symbol=None) -> float:
+    """Mean device time per call of ``fn``: for each device kernel whose
+    symbol contains ``symbol`` (every kernel when None), its mean duration
+    in ``torch.profiler``'s ``key_averages`` over ``iters`` calls times its
+    launches per call. Means, not totals over ``iters``, because the tracer
+    may drop a kernel's record now and then."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    hits = [e for e in prof.key_averages() if e.device_type == cuda
+            and (symbol is None or symbol in e.key) and e.count]
+    if not hits:
+        raise AssertionError(f'profiler saw no kernel matching {symbol!r}')
+    return sum(e.device_time_total / e.count * max(1, round(e.count / iters))
+               for e in hits) / 1e3
 
 
 def max_sm_clock_hz() -> float:
@@ -86,26 +132,24 @@ def bf16_ulp(v: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(v), e - 8)
 
 
-def check_k1(kc, rng):
-    """K1 at the mask-head GroupNorm shape [B*K = 1600, 14*14, 128], G=16."""
-    n, q, c, g = BATCH * 100, 196, 128, 16
-    x = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2 + 1).to(DEVICE)
-    scale = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
-    bias = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
-    err32 = 0.0
-    for relu in (False, True):
-        got = kc.band_groupnorm(x, scale, bias, g, fuse_relu=relu)
-        want = kc.band_groupnorm_plain(x, scale, bias, g, fuse_relu=relu)
-        err32 = max(err32, (got - want).abs().max().item())
-    if not err32 <= 2e-5:
-        raise AssertionError(f'band_groupnorm f32: max abs err {err32} > 2e-5')
-    xb = x.bfloat16()
-    got = kc.band_groupnorm(xb, scale, bias, g, fuse_relu=True).float()
-    want = kc.band_groupnorm_plain(xb, scale, bias, g, fuse_relu=True).float()
-    # the plain version rounds (x - m1), *inv, *scale, +bias and m1, inv,
-    # scale, bias to bf16; measure in ulps of the largest operand of that
-    # chain, (|x| + |m1|) * inv * |scale| + |bias|
-    xr = torch.relu(xb.float()).reshape(n, g, -1)
+def k1_errors(kc, x, scale, bias, g: int, relu: bool):
+    """K1 on ``x`` against its plain version and against the plain version
+    evaluated in f64 (f32 statistics, as both use): max abs errors for f32;
+    for bf16, max errors in bf16 ulps at operand scale."""
+    got = kc.band_groupnorm(x, scale, bias, g, fuse_relu=relu).float()
+    want = kc.band_groupnorm_plain(x, scale, bias, g, fuse_relu=relu).float()
+    exact = kc.band_groupnorm_plain(x.double(), scale.double(), bias.double(),
+                                    g, fuse_relu=relu)
+    if x.dtype == torch.float32:
+        return ((got - want).abs().max().item(),
+                (got - exact).abs().max().item())
+    # the scale of the chain's largest operand,
+    # (|x| + |m1|) * inv * |scale| + |bias|
+    n, q, c = x.shape
+    xr = x.float()
+    if relu:
+        xr = torch.relu(xr)
+    xr = xr.reshape(n, g, -1)
     m1 = xr.mean(-1, keepdim=True)
     inv = torch.rsqrt(torch.clamp(xr.square().mean(-1, keepdim=True)
                                   - m1 * m1, min=0.0) + 1e-5)
@@ -114,22 +158,87 @@ def check_k1(kc, rng):
     tb = bias.reshape(g, c // g).repeat(1, reps)
     mag = ((xr.abs() + m1.abs()) * inv * ts.abs() + tb.abs()).reshape(n, q, c)
     mag = torch.maximum(mag, torch.maximum(got.abs(), want.abs()))
-    ulps = ((got - want).abs() / bf16_ulp(mag)).max().item()
-    if not ulps <= 3.0:
-        raise AssertionError(f'band_groupnorm bf16: {ulps} ulp > 3')
-    ms = time_ms(lambda: kc.band_groupnorm(xb, scale, bias, g,
-                                           fuse_relu=True), 200)
-    plain_ms = time_ms(lambda: kc.band_groupnorm_plain(
-        xb, scale, bias, g, fuse_relu=True), 50)
+    ulp = bf16_ulp(mag).double()
+    return (((got - want).abs() / ulp).max().item(),
+            ((got - exact).abs() / ulp).max().item())
+
+
+def k1_cases(kc, rng, shapes, g=16):
+    """K1 at each (n, Q, C), f32 and bf16, relu off and on; raises after
+    trying them all if any is outside its tolerance."""
+    cases, bad = [], []
+    for n, q, c in shapes:
+        x = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2
+                             + 1).to(DEVICE)
+        scale = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
+        bias = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            for relu in (False, True):
+                err, exact_err = k1_errors(kc, x.to(dtype), scale, bias, g,
+                                           relu)
+                case = dict(shape=[n, q, c], dtype=str(dtype)[6:],
+                            relu=relu, err=err, exact_err=exact_err)
+                cases.append(case)
+                ok = (err <= K1_F32_ATOL and exact_err <= K1_F32_ATOL
+                      if dtype == torch.float32 else
+                      err <= K1_BF16_ULPS and exact_err <= K1_BF16_EXACT_ULPS)
+                if not ok:
+                    bad.append(case)
+    if bad:
+        raise AssertionError(f'band_groupnorm outside tolerance: {bad}')
+    return cases
+
+
+def check_k1(kc, rng, edges: bool):
+    """K1 at the mask-head GroupNorm shape [B*K = 1600, 14*14, 128], G=16
+    (and, with ``edges``, at K1_EDGES). Timed in bf16: with relu as on the
+    main path, and without relu beside ``F.group_norm`` over the [N, Q*C]
+    view, whose G groups of contiguous channels are the bands; its
+    per-channel affine is the periodic table, cast to bf16 because
+    group_norm takes weights of the input's type."""
+    n, q, c, g = BATCH * 100, 196, 128, 16
+    cases = k1_cases(kc, rng, [(n, q, c)] + (K1_EDGES if edges else []), g)
+    err32 = max(k['err'] for k in cases if k['dtype'] == 'float32')
+    ulps = max(k['err'] for k in cases if k['dtype'] == 'bfloat16')
+    exact_ulps = max(k['exact_err'] for k in cases
+                     if k['dtype'] == 'bfloat16')
+    xb = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2
+                          + 1).to(DEVICE).bfloat16()
+    scale = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
+    bias = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
+
+    def kernel(relu=True):
+        return kc.band_groupnorm(xb, scale, bias, g, fuse_relu=relu)
+
+    length = q * c // g
+    table_s = scale.reshape(g, c // g).repeat(1, length // (c // g))
+    table_b = bias.reshape(g, c // g).repeat(1, length // (c // g))
+    table_s, table_b = table_s.reshape(-1).bfloat16(), table_b.reshape(-1).bfloat16()
+
+    def library():
+        return torch.nn.functional.group_norm(
+            xb.view(n, q * c), g, weight=table_s, bias=table_b, eps=1e-5)
+
+    library_err = (library().float().view(n, q, c)
+                   - kernel(False).float()).abs().max().item()
     nbytes = 2 * xb.numel() * xb.element_size() + 2 * 4 * c
     b_ms, b_by = bound_ms(nbytes, 8 * xb.numel())
+    dev_ms = device_ms(kernel, 200, 'band_groupnorm')
     return dict(name='band_groupnorm', route='cuda',
                 source='masklab_tpu_torch/csrc/band_groupnorm.cu',
                 replaces='masklab_tpu/ops/pallas/groupnorm_kernel.py:141',
                 shape=f'[{n}, {q}, {c}] bf16, G={g}, fuse_relu',
-                max_abs_err=err32, bf16_max_ulp=ulps, ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None)
+                max_abs_err=err32, bf16_max_ulp=ulps,
+                bf16_max_ulp_vs_f64=exact_ulps, ms=dev_ms,
+                device_ms=dev_ms, call_ms=time_ms(kernel, 200),
+                device_ms_no_relu=device_ms(lambda: kernel(False), 200,
+                                            'band_groupnorm'),
+                plain_ms=time_ms(lambda: kc.band_groupnorm_plain(
+                    xb, scale, bias, g, fuse_relu=True), 50),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(library, 200),
+                library_call_ms=time_ms(library, 200),
+                library_max_abs_err=library_err, cases=len(cases))
 
 
 def check_k2(kc, rng):
@@ -148,17 +257,18 @@ def check_k2(kc, rng):
     if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
         bad = int((vals != pv).sum() + (idx != pi).sum())
         raise AssertionError(f'segment_topk differs from plain at {bad} slots')
-    ms = time_ms(lambda: kc.segment_topk(x, cap), 200)
-    plain_ms = time_ms(lambda: kc.segment_topk_plain(x, cap), 20)
-    library_ms = time_ms(lambda: torch.topk(x, cap, dim=1), 200)
+    dev_ms = device_ms(lambda: kc.segment_topk(x, cap), 200, 'segment_topk')
     nbytes = x.numel() * 4 + 2 * vals.numel() * 4
     b_ms, b_by = bound_ms(nbytes, x.numel())
     return dict(name='segment_topk', route='cuda',
                 source='masklab_tpu_torch/csrc/segment_topk.cu',
                 replaces='masklab_tpu/ops/pallas/topk_kernel.py:53',
                 shape=f'[{r}, {m}, {s}] f32, cap {cap}', max_abs_err=0.0,
-                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                ms=dev_ms, device_ms=dev_ms,
+                call_ms=time_ms(lambda: kc.segment_topk(x, cap), 200),
+                plain_ms=time_ms(lambda: kc.segment_topk_plain(x, cap), 20),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: torch.topk(x, cap, dim=1), 200))
 
 
 def nms_inputs(rng, r, k):
@@ -175,14 +285,52 @@ def nms_inputs(rng, r, k):
             torch.from_numpy(valid).to(DEVICE))
 
 
-def check_k3(kc, rng):
+def nms_edges(rng):
+    """K3's edge cases as (name, boxes, valid, t, max_outputs): K from 1 to
+    2048 (one word, word edges, the cluster-distributed mask) at caps 1,
+    100 and K; no valid box; integer-grid boxes whose IoU equals t exactly
+    (e.g. [0,0,10,10] against [0,0,10,5] at t=0.5); zero-area boxes."""
+    cases = []
+    for k in (1, 63, 64, 65, 256, 500, 1536, 2048):
+        boxes, valid = nms_inputs(rng, 3, k)
+        for cap in sorted({1, 100, k}):
+            cases.append((f'K={k} cap={cap}', boxes, valid, 0.5, cap))
+    boxes, valid = nms_inputs(rng, 4, 256)
+    cases.append(('no valid box', boxes, torch.zeros_like(valid), 0.5, 100))
+    lo = rng.randint(0, 8, (4, 128, 2))
+    grid = np.concatenate([lo, lo + rng.randint(1, 6, (4, 128, 2))], -1)
+    grid[:, :3] = [[0, 0, 10, 10], [0, 0, 10, 5], [0, 0, 10, 6]]
+    cases.append(('IoU == t on an integer grid',
+                  torch.from_numpy(grid.astype(np.float32)).to(DEVICE),
+                  torch.ones(4, 128, dtype=torch.bool, device=DEVICE), 0.5,
+                  128))
+    boxes, valid = nms_inputs(rng, 2, 100)
+    flat = torch.from_numpy(rng.rand(2, 100) < 0.3).to(DEVICE)
+    boxes = boxes.clone()
+    boxes[..., 2] = torch.where(flat, boxes[..., 0], boxes[..., 2])
+    boxes[:, 0, 2] = boxes[:, 0, 0]
+    boxes[:, 1:4] = boxes[:, :1]            # three copies of a zero-area box
+    cases.append(('zero-area boxes', boxes.contiguous(), valid, 0.5, 100))
+    return cases
+
+
+def check_k3(kc, rng, edges: bool):
     """K3 at both NMS stages: 80 x K=256 (t=0.4) and 16 x K=500 (t=0.6),
-    100 kept at most. Times are one forward's two launches. Besides the
-    bytes / operations bound, ``chain_bound_ms`` is the greedy sweep's
-    latency chain: the sets of a launch run side by side, the launches one
-    after the other, and each set walks its K boxes in order."""
+    100 kept at most, exact against the plain version (and, with
+    ``edges``, at nms_edges). Times are one forward's two launches. With
+    ``edges`` the device time is also split: ``build_ms`` is the
+    build-only instance of the kernel (same source, no sweep),
+    ``sweep_ms`` the rest. Besides the bytes / operations bound,
+    ``chain_bound_ms`` is the greedy sweep's latency chain: the sets of a
+    launch run side by side, the launches one after the other, and each
+    set walks its K boxes in order."""
     stages = [(BATCH * 5, 256, 0.4), (BATCH, 500, 0.6)]
-    ms = plain_ms = nbytes = flops = chain_cycles = 0.0
+    out = dict(call_ms=0.0, device_ms=0.0, plain_ms=0.0)
+    if edges:
+        from masklab_tpu_torch.ops.cuda import _build
+        out['build_ms'] = 0.0
+        lib = _build.library()
+    nbytes = flops = chain_cycles = 0.0
     for r, k, thr in stages:
         boxes, valid = nms_inputs(rng, r, k)
         got = kc.nms_keep_mask(boxes, valid, thr, 100)
@@ -190,23 +338,46 @@ def check_k3(kc, rng):
         if not torch.equal(got, want):
             raise AssertionError(f'nms_keep_mask differs from plain at '
                                  f'{int((got != want).sum())} of {r}x{k}')
-        ms += time_ms(lambda: kc.nms_keep_mask(boxes, valid, thr, 100), 200)
-        plain_ms += time_ms(lambda: kc.nms_keep_mask_plain(
+        call = lambda: kc.nms_keep_mask(boxes, valid, thr, 100)  # noqa: E731
+        out['call_ms'] += time_ms(call, 200)
+        out['device_ms'] += device_ms(call, 200, 'nms_keep')
+        out['plain_ms'] += time_ms(lambda: kc.nms_keep_mask_plain(
             boxes, valid, thr, 100), 3, warmup=1)
+        if edges:
+            scratch = torch.empty_like(valid)
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def build():
+                _build.check(lib.mlk_nms_keep_build_only(
+                    boxes.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+                    r, k, thr, 100, stream), 'nms_keep build-only')
+            out['build_ms'] += device_ms(build, 200, 'nms_keep')
         # boxes 16 B + valid 1 B in, keep 1 B out; ~14 ops per IoU pair
         nbytes += r * k * (16 + 1 + 1)
         flops += r * k * (k - 1) / 2 * 14
         most_kept = int(got.sum(1).max())
         chain_cycles += (k * SWEEP_CYCLES_PER_BOX
                          + most_kept * SWEEP_CYCLES_PER_KEEP)
+    if edges:
+        out['sweep_ms'] = out['device_ms'] - out['build_ms']
+        bad = []
+        cases = nms_edges(rng)
+        for name, boxes, valid, thr, cap in cases:
+            got = kc.nms_keep_mask(boxes, valid, thr, cap)
+            want = kc.nms_keep_mask_plain(boxes, valid, thr, cap)
+            if not torch.equal(got, want):
+                bad.append(f'{name}: {int((got != want).sum())} differ')
+        if bad:
+            raise AssertionError(f'nms_keep_mask differs from plain: {bad}')
+        out['cases'] = len(cases)
     b_ms, b_by = bound_ms(nbytes, flops)
     return dict(name='nms_keep', route='cuda',
                 source='masklab_tpu_torch/csrc/nms_keep.cu',
                 replaces='masklab_tpu/ops/pallas/nms_kernel.py:93',
                 shape='[80, 256] t=0.4 + [16, 500] t=0.6, cap 100',
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                max_abs_err=0.0, ms=out['device_ms'], bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
-                chain_bound_ms=chain_cycles / max_sm_clock_hz() * 1e3)
+                chain_bound_ms=chain_cycles / max_sm_clock_hz() * 1e3, **out)
 
 
 def narrow_config(mt):
@@ -378,6 +549,11 @@ def serve(mt, kc, rng):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--kernels-only', action='store_true',
+                        help='card, build and kernel phases at the main '
+                        "path's shapes only")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA card available', file=sys.stderr)
         return 1
@@ -396,11 +572,16 @@ def main() -> int:
         print(f'ptxas: {line}', file=sys.stderr)
 
     rng = np.random.RandomState(0)
-    kernels = [check_k1(kc, rng), check_k2(kc, rng), check_k3(kc, rng)]
+    edges = not args.kernels_only
+    kernels = [check_k1(kc, rng, edges), check_k2(kc, rng),
+               check_k3(kc, rng, edges)]
     for k in kernels:
-        print(f'kernel {k["name"]}: {k["ms"]:.4f} ms (plain '
-              f'{k["plain_ms"]:.4f}, bound {k["bound_ms"]:.4f}) '
-              f'{k["shape"]}', flush=True)
+        print(f'kernel {k["name"]}: device {k["device_ms"]:.4f} ms, call '
+              f'{k["call_ms"]:.4f} (plain {k["plain_ms"]:.4f}, bound '
+              f'{k["bound_ms"]:.4f}) {k["shape"]}', flush=True)
+    if args.kernels_only:
+        finish(card, {'kernels': kernels})
+        return 0
 
     errs = check_reference(mt, rng)
     print(f'reference: {json.dumps(errs)}', flush=True)
@@ -416,12 +597,17 @@ def main() -> int:
         k['launches'] = counts[k['name']]
         if k['name'] == 'segment_topk':
             k['pool_fallbacks'] = stats['pool_fallbacks']
-    print(json.dumps({'kernels': kernels, 'serve': stats}))
+    finish(card, {'kernels': kernels, 'serve': stats})
+    return 0
+
+
+def finish(card: str, result: dict) -> None:
+    """The last three lines: the result, the card, the device line."""
+    print(json.dumps(result))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == '__main__':

@@ -42,7 +42,9 @@ SIGNATURES = {
     'mlk_band_groupnorm': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
     'mlk_segment_topk': [_P, _P, _P, _I, _I, _I, _I, _P],
     'mlk_nms_keep': [_P, _P, _P, _I, _I, _F, _I, _P],
-    'mlk_nms_keep_smem_bytes': [_I],
+    'mlk_nms_keep_build_only': [_P, _P, _P, _I, _I, _F, _I, _P],
+    'mlk_nms_keep_smem_bytes': [_I, _I],
+    'mlk_nms_keep_init': [],
 }
 
 _lock = threading.Lock()

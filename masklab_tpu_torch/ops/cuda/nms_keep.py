@@ -16,6 +16,8 @@ from ._build import check, library
 launches = 0   # kernel launches since the last reset
 MAX_K = 64 * 32
 MAX_SMEM = 227 * 1024
+_smem_bytes = {}       # (R, K) -> shared memory one CTA of the launch needs
+_ready_devices = set()  # devices whose kernel may use MAX_SMEM
 
 
 def nms_keep_mask_plain(boxes_yxyx: torch.Tensor, valid: torch.Tensor,
@@ -39,6 +41,13 @@ def nms_keep_mask_plain(boxes_yxyx: torch.Tensor, valid: torch.Tensor,
         suppressed |= can_keep[:, None] & suppress_from[:, i]
         count += can_keep
     return kept
+
+
+def _smem(lib, r: int, k: int) -> int:
+    key = (r, k)
+    if key not in _smem_bytes:
+        _smem_bytes[key] = lib.mlk_nms_keep_smem_bytes(r, k)
+    return _smem_bytes[key]
 
 
 def nms_keep_mask(boxes_yxyx: torch.Tensor, valid: torch.Tensor,
@@ -65,11 +74,14 @@ def nms_keep_mask(boxes_yxyx: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f'nms_keep_mask: valid must be a contiguous bool '
                          f'[{r}, {k}] tensor on {boxes_yxyx.device}')
     lib = library()
-    if k > MAX_K or lib.mlk_nms_keep_smem_bytes(k) > MAX_SMEM:
+    if k > MAX_K or _smem(lib, r, k) > MAX_SMEM:
         raise ValueError(f'nms_keep_mask: K={k} boxes exceed one block\'s '
                          'shared memory')
     keep = torch.empty((r, k), dtype=torch.bool, device=valid.device)
     with torch.cuda.device(boxes_yxyx.device):
+        if boxes_yxyx.device.index not in _ready_devices:
+            check(lib.mlk_nms_keep_init(), 'nms_keep_mask')
+            _ready_devices.add(boxes_yxyx.device.index)
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.mlk_nms_keep(boxes_yxyx.data_ptr(), valid.data_ptr(),
                                   keep.data_ptr(), r, k,

@@ -34,9 +34,12 @@ def _gn_inputs(seed, n, hw, c):
 
 
 @pytest.mark.parametrize('fuse_relu', [False, True])
-@pytest.mark.parametrize('hw,c', [(14, 256), (14, 64), (7, 32)])
+@pytest.mark.parametrize('hw,c', [(14, 256), (14, 64), (7, 32), (14, 128),
+                                  (7, 48)])
 def test_band_groupnorm_plain_matches_pallas(hw, c, fuse_relu):
-    """f32, atol 2e-5 (f32 statistics summed in another order)."""
+    """f32, atol 2e-5 (f32 statistics summed in another order). (14, 128)
+    is the mask heads' map; (7, 48) has cg = 3, which does not divide a
+    16-byte vector."""
     import jax.numpy as jnp
     from masklab_tpu.nn.layers import GroupNorm as JaxGroupNorm
     from masklab_tpu.ops.pallas.groupnorm_kernel import band_groupnorm_pallas
@@ -55,22 +58,58 @@ def test_band_groupnorm_plain_matches_pallas(hw, c, fuse_relu):
     np.testing.assert_allclose(got.reshape(x.shape), module, atol=2e-5)
 
 
+def _bf16_ulps(got, want, x, scale, bias, groups, relu):
+    """Max |got - want| in bf16 ulps at operand scale: the plain version
+    rounds m1, inv, scale, bias and four operations to bf16, so the gap is
+    measured against the chain's largest operand,
+    (|x| + |m1|) * inv * |scale| + |bias|."""
+    n, q, c = x.shape
+    xr = torch.relu(x.float()) if relu else x.float()
+    xr = xr.reshape(n, groups, -1)
+    m1 = xr.mean(-1, keepdim=True)
+    inv = torch.rsqrt(torch.clamp(xr.square().mean(-1, keepdim=True)
+                                  - m1 * m1, min=0.0) + 1e-5)
+    reps = xr.shape[-1] // (c // groups)
+    ts = scale.reshape(groups, c // groups).repeat(1, reps)
+    tb = bias.reshape(groups, c // groups).repeat(1, reps)
+    mag = ((xr.abs() + m1.abs()) * inv * ts.abs() + tb.abs()).reshape(n, q, c)
+    mag = torch.maximum(mag, torch.maximum(got.abs(), want.abs()))
+    _, e = torch.frexp(mag.clamp(min=2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8).to(want.dtype)
+    return ((got - want).abs() / ulp).max().item()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
-def test_band_groupnorm_kernel_matches_plain(cuda, dtype):
-    """f32 within 2e-5; bf16 within 2 ulp of the output's scale (the plain
-    version normalizes in bf16, the kernel in f32)."""
-    x, scale, bias = _gn_inputs(1, 64, 14, 128)
-    x = torch.from_numpy(x.reshape(64, 196, 128)).to(cuda)
-    x = x.to(getattr(torch, dtype))
-    s, b = torch.from_numpy(scale).to(cuda), torch.from_numpy(bias).to(cuda)
+@pytest.mark.parametrize('n,q,c', [(64, 196, 128), (1, 196, 128),
+                                   (7, 196, 128), (533, 196, 128),
+                                   (1600, 196, 128), (7, 196, 256),
+                                   (7, 49, 48), (7, 784, 256)])
+def test_band_groupnorm_kernel_matches_plain(cuda, dtype, n, q, c):
+    """f32 within 2e-5 of the plain version and of the plain version in
+    f64. bf16, in ulps at operand scale: within 4 of the plain version,
+    whose roundings put even the exactly rounded result up to 4 ulp away,
+    and within 0.51 of the f64 result (the kernel rounds once). The maps
+    cover the warp path (the mask heads' 196 x 128 at several batches, a
+    longer band at C=256) and the block path (cg = 3; a band of 12544
+    bf16, too long for registers)."""
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2 + 1)
+    x = x.to(cuda).to(getattr(torch, dtype))
+    s = torch.from_numpy(rng.rand(c).astype(np.float32)).to(cuda)
+    b = torch.from_numpy(rng.rand(c).astype(np.float32)).to(cuda)
     before = kc.launch_counts()['band_groupnorm']
     for relu in (False, True):
         got = kc.band_groupnorm(x, s, b, 16, fuse_relu=relu).float()
         want = kc.band_groupnorm_plain(x, s, b, 16, fuse_relu=relu).float()
-        atol = 2e-5 if dtype == 'float32' else 2 * 2.0 ** -7 * max(
-            1.0, want.abs().max().item())
-        torch.testing.assert_close(got, want, atol=atol, rtol=0)
+        exact = kc.band_groupnorm_plain(x.double(), s.double(), b.double(),
+                                        16, fuse_relu=relu)
+        if dtype == 'float32':
+            torch.testing.assert_close(got, want, atol=2e-5, rtol=0)
+            torch.testing.assert_close(got.double(), exact, atol=2e-5, rtol=0)
+        else:
+            assert _bf16_ulps(got, want, x, s, b, 16, relu) <= 4.0
+            assert _bf16_ulps(got.double(), exact, x, s, b, 16, relu) <= 0.51
     assert kc.launch_counts()['band_groupnorm'] == before + 2
 
 
@@ -139,14 +178,39 @@ def _nms_case(seed, r=3, n=64):
     return np.ascontiguousarray(yxyx), rng.rand(r, n) > 0.15
 
 
-@pytest.mark.parametrize('seed', [0, 1, 2])
-@pytest.mark.parametrize('thresh,cap', [(0.4, 100), (0.6, 8), (0.5, 3)])
-def test_nms_keep_plain_matches_reference(seed, thresh, cap):
-    """Exact: the fixpoint, the sequential loop and the Pallas kernel."""
+def _nms_edge(name):
+    """Edge cases of the keep-mask as (boxes [R, K, 4], valid [R, K], t,
+    max_outputs): K around the 64-bit word edges and the cluster-distributed
+    mask; no valid box; integer-grid boxes whose IoU equals t exactly
+    ([0,0,10,10] against [0,0,10,5] at t=0.5); zero-area boxes."""
+    rng = np.random.RandomState(7)
+    if name.startswith('K='):
+        k, cap = (int(v.split('=')[1]) for v in name.split())
+        yxyx, valid = _nms_case(4, 3, k)
+        return yxyx, valid, 0.5, cap
+    if name == 'no valid box':
+        yxyx, valid = _nms_case(5, 2, 100)
+        return yxyx, np.zeros_like(valid), 0.5, 100
+    if name == 'IoU == t':
+        lo = rng.randint(0, 8, (3, 48, 2))
+        grid = np.concatenate([lo, lo + rng.randint(1, 6, (3, 48, 2))], -1)
+        grid[:, :3] = [[0, 0, 10, 10], [0, 0, 10, 5], [0, 0, 10, 6]]
+        return grid.astype(np.float32), np.ones((3, 48), bool), 0.5, 48
+    assert name == 'zero-area'
+    yxyx, valid = _nms_case(6, 2, 64)
+    flat = rng.rand(2, 64) < 0.3
+    yxyx[..., 2] = np.where(flat, yxyx[..., 0], yxyx[..., 2])
+    yxyx[:, 0, 2] = yxyx[:, 0, 0]
+    yxyx[:, 1:4] = yxyx[:, :1]          # three copies of a zero-area box
+    return yxyx, valid, 0.5, 100
+
+
+def _assert_plain_matches_reference(yxyx, valid, thresh, cap):
+    """The plain version equals the fixpoint, the sequential loop and the
+    Pallas kernel (interpret mode) on every row."""
     import jax.numpy as jnp
     from masklab_tpu.ops.nms import nms_keep_mask, nms_keep_mask_sequential
     from masklab_tpu.ops.pallas import nms_keep_mask_pallas
-    yxyx, valid = _nms_case(seed)
     got = kc.nms_keep_mask_plain(torch.from_numpy(yxyx),
                                  torch.from_numpy(valid), thresh, cap).numpy()
     for row in range(yxyx.shape[0]):
@@ -159,6 +223,29 @@ def test_nms_keep_plain_matches_reference(seed, thresh, cap):
             nms_keep_mask_pallas(b, v, thresh, cap, interpret=True)))
 
 
+@pytest.mark.parametrize('seed', [0, 1, 2])
+@pytest.mark.parametrize('thresh,cap', [(0.4, 100), (0.6, 8), (0.5, 3)])
+def test_nms_keep_plain_matches_reference(seed, thresh, cap):
+    """Exact: the fixpoint, the sequential loop and the Pallas kernel."""
+    _assert_plain_matches_reference(*_nms_case(seed), thresh, cap)
+
+
+@pytest.mark.parametrize('name', ['K=1 cap=1', 'K=63 cap=100', 'K=65 cap=65',
+                                  'no valid box', 'IoU == t', 'zero-area'])
+def test_nms_keep_plain_matches_reference_edges(name):
+    """Exact at the edge cases the CUDA kernel is held to on the card."""
+    _assert_plain_matches_reference(*_nms_edge(name))
+
+
+def test_nms_edge_iou_equals_threshold():
+    """The integer-grid case really has IoU == t: [0,0,10,10] keeps
+    [0,0,10,5] (IoU exactly 0.5, not > 0.5) and removes [0,0,10,6]."""
+    yxyx, valid, thresh, cap = _nms_edge('IoU == t')
+    keep = kc.nms_keep_mask_plain(torch.from_numpy(yxyx),
+                                  torch.from_numpy(valid), thresh, cap)
+    assert keep[:, :3].tolist() == [[True, True, False]] * 3
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('r,k,thresh', [(80, 256, 0.4), (16, 500, 0.6),
                                         (4, 1000, 0.5)])
@@ -168,3 +255,18 @@ def test_nms_keep_kernel_matches_plain(cuda, r, k, thresh):
     v = torch.from_numpy(valid).to(cuda)
     got = kc.nms_keep_mask(boxes, v, thresh, 100)
     assert torch.equal(got, kc.nms_keep_mask_plain(boxes, v, thresh, 100))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', [
+    f'K={k} cap={cap}' for k in (1, 63, 64, 65, 256, 500, 1536, 2048)
+    for cap in sorted({1, 100, k})] + ['no valid box', 'IoU == t',
+                                       'zero-area'])
+def test_nms_keep_kernel_matches_plain_edges(cuda, name):
+    """Exact, K up to MAX_K = 2048 (above ~1280 the rows stay spread over
+    the cluster's shared memory)."""
+    yxyx, valid, thresh, cap = _nms_edge(name)
+    boxes = torch.from_numpy(yxyx).to(cuda)
+    v = torch.from_numpy(valid).to(cuda)
+    got = kc.nms_keep_mask(boxes, v, thresh, cap)
+    assert torch.equal(got, kc.nms_keep_mask_plain(boxes, v, thresh, cap))
