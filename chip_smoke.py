@@ -9,13 +9,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: compiles the three CUDA kernels from ``masklab_tpu_torch/csrc``;
   3. kernels: holds each kernel against its plain PyTorch version at the
      main path's shapes and at edge cases (K2, K3 exact; K1 f32 within
-     2e-5, bf16 within 3 bf16 ulp at operand scale) and times each kernel
-     at the main path's shapes: ``device_ms`` (= ``ms``), its own mean
+     2e-5, bf16 within 4 bf16 ulp at operand scale of the plain version and
+     0.51 ulp of its f64 evaluation) and times each kernel at the main
+     path's shapes: ``device_ms`` (= ``ms``), its own mean
      duration on the device from ``torch.profiler``; ``call_ms``, CUDA
      events around back-to-back wrapper calls, host work included; the
      plain version and, where one exists, the one PyTorch call computing
      the same function (``library_ms``); K3's device time split into the
-     bitmask build and the sweep;
+     bitmask build and the sweep; K2 timed with the L2 flushed before each
+     launch (its ``ms``) and back to back, and the whole candidate pool
+     around it (``pool_ms``);
   4. reference: a narrow model (width 32, depth 1, f32, 512 px) on the card
      against the same model on the CPU, where every kernel's plain version
      runs instead;
@@ -31,9 +34,9 @@ Then it prints the ``kernels`` JSON line, the card line and, last,
 ``{"ok": true, "device": {...}}``. It needs a CUDA card and the repo.
 
 ``--kernels-only`` runs phases 1-3 at the main path's shapes alone (no
-edge cases, no split of K3): copied into another tree of the repo, it
-times that tree's kernels the same way, for comparing two trees in one
-call.
+edge cases, no split of K3): copied into another tree of the repo that
+has ``segment_topk_rows``, it times that tree's kernels the same way, for
+comparing two trees in one call.
 """
 import argparse
 import json
@@ -91,12 +94,13 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters: int, symbol=None) -> float:
+def device_ms(fn, iters: int, symbol=None, exclude=()) -> float:
     """Mean device time per call of ``fn``: for each device kernel whose
-    symbol contains ``symbol`` (every kernel when None), its mean duration
-    in ``torch.profiler``'s ``key_averages`` over ``iters`` calls times its
-    launches per call. Means, not totals over ``iters``, because the tracer
-    may drop a kernel's record now and then."""
+    symbol contains ``symbol`` (every kernel when None) and is not in
+    ``exclude``, its mean duration in ``torch.profiler``'s ``key_averages``
+    over ``iters`` calls times its launches per call. Means, not totals
+    over ``iters``, because the tracer may drop a kernel's record now and
+    then."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -106,7 +110,8 @@ def device_ms(fn, iters: int, symbol=None) -> float:
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     hits = [e for e in prof.key_averages() if e.device_type == cuda
-            and (symbol is None or symbol in e.key) and e.count]
+            and (symbol is None or symbol in e.key)
+            and e.key not in exclude and e.count]
     if not hits:
         raise AssertionError(f'profiler saw no kernel matching {symbol!r}')
     return sum(e.device_time_total / e.count * max(1, round(e.count / iters))
@@ -241,34 +246,147 @@ def check_k1(kc, rng, edges: bool):
                 library_max_abs_err=library_err, cases=len(cases))
 
 
-def check_k2(kc, rng):
-    """K2 at the 512 px pool shape: [B*C = 80, 128, 640] f32, cap 16."""
-    r, m, s, cap = BATCH * 5, 128, 640, 16
-    n = 81840
-    # forced-dense scores: sigmoid near 2, quantized through bf16, so most
-    # columns carry exact ties; sub-floor entries masked to -1; -inf pad
-    logits = 2.0 + 0.05 * rng.randn(r, n).astype(np.float32)
-    scores = torch.sigmoid(torch.from_numpy(logits)).bfloat16().float()
-    scores[torch.from_numpy(rng.rand(r, n) < 0.05)] = -1.0
-    x = torch.cat([scores, torch.full((r, m * s - n), float('-inf'))], 1)
-    x = x.reshape(r, m, s).contiguous().to(DEVICE)
-    vals, idx = kc.segment_topk(x, cap)
-    pv, pi = kc.segment_topk_plain(x, cap)
+def k2_scores(rng, b, c, n, layout='transposed', bf16=True):
+    """[B, C, n] forced-dense scores on the card: sigmoid near 2, quantized
+    through bf16 (as the bf16 head computes it; ``bf16=False`` keeps the
+    f32 sigmoid), so most columns carry exact ties; 5% masked to -1. As the
+    main path has them, the transpose of a contiguous [B, n, C] tensor, or
+    contiguous."""
+    logits = 2.0 + 0.05 * rng.randn(b, n, c).astype(np.float32)
+    x = torch.sigmoid(torch.from_numpy(logits))
+    if bf16:
+        x = x.bfloat16().float()
+    x[torch.from_numpy(rng.rand(b, n, c) < 0.05)] = -1.0
+    x = x.to(DEVICE).transpose(1, 2)
+    return x.contiguous() if layout == 'contiguous' else x
+
+
+def k2_edges(rng):
+    """K2's edge cases as (name, scores, cap): caps 1, 2, 15 and 16 at n =
+    81840 (the main path), 81920 (a multiple of 128), 40000, 129 and 1, in
+    both layouts; R = 1; columns with fewer finite values than cap; all-(-1)
+    and all-equal columns; s = 3, not a multiple of the launch tile; and
+    scores that are not all bf16-exact, which take the kernel's (value,
+    row) keys: f32 sigmoids, one f32 score among bf16 ones, +0.0 and -0.0
+    mixed."""
+    cases = []
+    for n in (81840, 81920, 40000, 129, 1):
+        for layout in ('contiguous', 'transposed'):
+            scores = k2_scores(rng, BATCH if n > 129 else 2, 5, n, layout)
+            for cap in (1, 2, 15, 16):
+                cases.append((f'n={n} {layout} cap={cap}', scores, cap))
+    cases.append(('R=1', k2_scores(rng, 1, 1, 81840, 'contiguous'), 16))
+    short = k2_scores(rng, 2, 5, 3000).clone()
+    short[..., 8 * 24:] = float('-inf')          # s = 24: 8 finite rows
+    cases.append(('fewer finite than cap', short, 16))
+    for name, value in (('all -1', -1.0), ('all equal', 0.5)):
+        cases.append((name, torch.full((2, 5, 3000), value, device=DEVICE),
+                       16))
+    cases.append(('s=3', k2_scores(rng, 2, 5, 300), 16))
+    cases.append(('f32 scores', k2_scores(rng, BATCH, 5, 81840, bf16=False),
+                  16))
+    one = k2_scores(rng, BATCH, 5, 81840).clone()
+    one[3, 2, 40000] += 1e-4
+    cases.append(('one f32 score', one, 16))
+    signs = torch.from_numpy(rng.rand(2, 5, 3000) < 0.5).to(DEVICE)
+    cases.append(('signed zeros', torch.where(signs, 0.0, -0.0), 16))
+    return cases
+
+
+def kernel_names(fn) -> set:
+    """The symbols of the device kernels that one call of ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return {e.key for e in prof.key_averages() if e.device_type == cuda}
+
+
+def l2_flusher():
+    """A call that evicts the 50 MB L2 by rewriting a 128 MB scratch tensor,
+    and its kernels' symbols (for ``device_ms``'s ``exclude``)."""
+    scratch = torch.zeros(32 << 20, dtype=torch.int32, device=DEVICE)
+
+    def flush():
+        torch.bitwise_not(scratch, out=scratch)
+    return flush, kernel_names(flush)
+
+
+def check_k2(kc, rng, edges: bool):
+    """K2 at the main path's call form: the [16, 5, 81840] transpose of a
+    contiguous [16, 81840, 5] f32 tensor, read in place, cap 16. Exact
+    against the plain version (and, with ``edges``, at k2_edges). Device
+    time cold (``ms`` = ``device_ms``: L2 flushed before each launch, only
+    K2's own symbol counted; the bound and the aims are read against it)
+    and hot (``device_hot_ms``, back to back); ``pool_ms``, all device work
+    of ``ops.nms.candidate_pool(masked, 256, 0.05)`` back to back;
+    ``torch.topk`` over the padded [80, 128, 640] copy as the yardstick,
+    cold like K2. With ``edges``, also ``device_f32_ms``: cold, on f32
+    sigmoids, which are not bf16-exact and take the kernel's (value, row)
+    keys."""
+    from masklab_tpu_torch.ops import nms
+    b, c, n, cap, m = BATCH, 5, 81840, 16, 128
+    s = -(-n // m)
+    masked = k2_scores(rng, b, c, n)
+    padded = torch.cat([masked.reshape(b * c, n),
+                        masked.new_full((b * c, m * s - n), float('-inf'))],
+                       1).reshape(b * c, m, s)
+
+    def kernel():
+        return kc.segment_topk_rows(masked, cap)
+    vals, idx = kernel()
+    pv, pi = kc.segment_topk_plain(padded, cap)
     if not (torch.equal(vals, pv) and torch.equal(idx, pi)):
         bad = int((vals != pv).sum() + (idx != pi).sum())
         raise AssertionError(f'segment_topk differs from plain at {bad} slots')
-    dev_ms = device_ms(lambda: kc.segment_topk(x, cap), 200, 'segment_topk')
-    nbytes = x.numel() * 4 + 2 * vals.numel() * 4
-    b_ms, b_by = bound_ms(nbytes, x.numel())
+    flush, flushes = l2_flusher()
+
+    def cold(fn):
+        return lambda: (flush(), fn())
+
+    def pool():
+        return nms.candidate_pool(masked, 256, 0.05)
+
+    def library():
+        return torch.topk(padded, cap, dim=1)
+
+    if kernel_names(library) & flushes:
+        raise AssertionError('torch.topk launches a kernel of the L2 flush')
+    out = dict(device_ms=device_ms(cold(kernel), 200, 'segment_topk'),
+               device_hot_ms=device_ms(kernel, 200, 'segment_topk'),
+               call_ms=time_ms(kernel, 200),
+               pool_ms=device_ms(pool, 50),
+               library_ms=device_ms(cold(library), 200, exclude=flushes),
+               library_call_ms=time_ms(library, 200))
+    if edges:
+        bad = []
+        cases = k2_edges(rng)
+        for name, scores, k in cases:
+            got = kc.segment_topk_rows(scores, k)
+            want = kc.segment_topk_rows_plain(scores, k)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                bad.append(name)
+        if bad:
+            raise AssertionError(f'segment_topk differs from plain: {bad}')
+        f32 = k2_scores(rng, b, c, n, bf16=False)
+        out.update(cases=len(cases), device_f32_ms=device_ms(
+            cold(lambda: kc.segment_topk_rows(f32, cap)), 200, 'segment_topk'))
+    # read b*c*n scores once; write f32 values and i32 indices
+    nbytes = b * c * n * 4 + 2 * vals.numel() * 4
+    b_ms, b_by = bound_ms(nbytes, b * c * n)
+    out['hot_below_bound'] = out['device_hot_ms'] < b_ms
     return dict(name='segment_topk', route='cuda',
                 source='masklab_tpu_torch/csrc/segment_topk.cu',
                 replaces='masklab_tpu/ops/pallas/topk_kernel.py:53',
-                shape=f'[{r}, {m}, {s}] f32, cap {cap}', max_abs_err=0.0,
-                ms=dev_ms, device_ms=dev_ms,
-                call_ms=time_ms(lambda: kc.segment_topk(x, cap), 200),
-                plain_ms=time_ms(lambda: kc.segment_topk_plain(x, cap), 20),
+                shape=f'[{b}, {c}, {n}] f32 (transposed [B, N, C]), cap {cap}',
+                max_abs_err=0.0, ms=out['device_ms'],
+                plain_ms=time_ms(lambda: kc.segment_topk_plain(padded, cap),
+                                 20),
                 bound_ms=b_ms, bound_by=b_by,
-                library_ms=time_ms(lambda: torch.topk(x, cap, dim=1), 200))
+                bound_share_cold=b_ms / out['device_ms'], **out)
 
 
 def nms_inputs(rng, r, k):
@@ -573,12 +691,19 @@ def main() -> int:
 
     rng = np.random.RandomState(0)
     edges = not args.kernels_only
-    kernels = [check_k1(kc, rng, edges), check_k2(kc, rng),
+    kernels = [check_k1(kc, rng, edges), check_k2(kc, rng, edges),
                check_k3(kc, rng, edges)]
     for k in kernels:
         print(f'kernel {k["name"]}: device {k["device_ms"]:.4f} ms, call '
               f'{k["call_ms"]:.4f} (plain {k["plain_ms"]:.4f}, bound '
               f'{k["bound_ms"]:.4f}) {k["shape"]}', flush=True)
+    k2 = kernels[1]
+    l2 = ' (below the HBM bound: read from L2)' if k2['hot_below_bound'] \
+        else ''
+    print(f'kernel segment_topk: cold {k2["device_ms"]:.5f} ms, hot '
+          f'{k2["device_hot_ms"]:.5f}{l2}, pool {k2["pool_ms"]:.5f}, '
+          f'torch.topk {k2["library_ms"]:.5f} cold; f32 scores '
+          f'{k2.get("device_f32_ms")}', flush=True)
     if args.kernels_only:
         finish(card, {'kernels': kernels})
         return 0

@@ -9,7 +9,8 @@ from __future__ import annotations
 from . import groupnorm, nms_keep, topk
 from .groupnorm import band_groupnorm, band_groupnorm_plain
 from .nms_keep import nms_keep_mask, nms_keep_mask_plain
-from .topk import segment_topk, segment_topk_plain
+from .topk import (segment_topk, segment_topk_plain, segment_topk_rows,
+                   segment_topk_rows_plain)
 
 _WRAPPERS = {'band_groupnorm': groupnorm, 'segment_topk': topk,
              'nms_keep': nms_keep}
@@ -26,5 +27,6 @@ def reset_launch_counts() -> None:
 
 
 __all__ = ['band_groupnorm', 'band_groupnorm_plain', 'segment_topk',
-           'segment_topk_plain', 'nms_keep_mask', 'nms_keep_mask_plain',
+           'segment_topk_plain', 'segment_topk_rows', 'segment_topk_rows_plain',
+           'nms_keep_mask', 'nms_keep_mask_plain',
            'launch_counts', 'reset_launch_counts']

@@ -38,9 +38,11 @@ COMMON_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     'mlk_band_groupnorm': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    'mlk_segment_topk': [_P, _P, _P, _I, _I, _I, _I, _P],
+    'mlk_segment_topk': [_P, _P, _P, _I, _I, _L, _L, _L, _I, _I, _I, _I,
+                         _P],
     'mlk_nms_keep': [_P, _P, _P, _I, _I, _F, _I, _P],
     'mlk_nms_keep_build_only': [_P, _P, _P, _I, _I, _F, _I, _P],
     'mlk_nms_keep_smem_bytes': [_I, _I],

@@ -24,10 +24,10 @@ from typing import Tuple
 import torch
 
 from .boxes import cxcywh_to_yxyx
-from .cuda import nms_keep_mask, segment_topk
+from .cuda import nms_keep_mask, segment_topk_rows
+from .cuda.topk import SEGMENT_ROWS
 
 NEG = -1.0
-SEGMENT_ROWS = 128     # m: rows of the strided [m, s] view of a score row
 SEGMENT_CAP = 16       # extracts kept per segment
 
 pool_fallbacks = 0     # certificate failures that took the exact top-k
@@ -59,13 +59,12 @@ def _pool_body(scores: torch.Tensor, k: int, floor: float):
     """The segment pool (``masklab_tpu/ops/nms.py:220-302``)."""
     global pool_fallbacks
     *batch, n = scores.shape
-    m, cap = SEGMENT_ROWS, SEGMENT_CAP
-    s = -(-n // m)
-    pad = s * m - n
-    # strided segmentation: segment j holds elements {j, j+s, j+2s, ...}
-    x = torch.cat([scores.float(),
-                   scores.new_full((*batch, pad), float('-inf'))], dim=-1)
-    vals3, idxs3 = segment_topk(x.reshape(-1, m, s).contiguous(), cap)
+    cap = SEGMENT_CAP
+    s = -(-n // SEGMENT_ROWS)
+    # strided segmentation: segment j holds elements {j, j+s, j+2s, ...} of
+    # the row padded with -inf to SEGMENT_ROWS * s; K2 reads the scores where
+    # they lie (on the main path the [B, C, N] transpose of cls_pred)
+    vals3, idxs3 = segment_topk_rows(scores.float(), cap, SEGMENT_ROWS)
     cand_v = vals3.reshape(*batch, cap * s)
     cand_i = idxs3.reshape(*batch, cap * s).long()
 

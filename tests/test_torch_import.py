@@ -82,7 +82,7 @@ def test_unported_backbone_raises():
 
 
 @pytest.mark.parametrize('call', ['band_groupnorm', 'segment_topk',
-                                  'nms_keep_mask'])
+                                  'segment_topk_rows', 'nms_keep_mask'])
 def test_wrappers_refuse_other_devices(call):
     """A wrapper takes the plain version only for a CPU tensor; any other
     device launches the kernel or raises, never falls back."""
@@ -93,6 +93,8 @@ def test_wrappers_refuse_other_devices(call):
             torch.empty(32, **meta), 16),
         'segment_topk': lambda: kc.segment_topk(
             torch.empty(2, 128, 8, **meta), 16),
+        'segment_topk_rows': lambda: kc.segment_topk_rows(
+            torch.empty(2, 5, 1000, **meta).transpose(1, 2), 16),
         'nms_keep_mask': lambda: kc.nms_keep_mask(
             torch.empty(2, 8, 4, **meta),
             torch.empty(2, 8, dtype=torch.bool, **meta), 0.5, 4),

@@ -164,6 +164,135 @@ def test_segment_topk_kernel_matches_plain(cuda):
         assert torch.equal(vals, pv) and torch.equal(idx, pi)
 
 
+def _score_rows(rng, b, c, n, layout, bf16=True):
+    """[B, C, n] forced-dense scores (sigmoid near 2 through bf16, so
+    columns carry exact ties, 5% masked to -1): as a contiguous tensor, or
+    as the [B, C, n] transpose of a contiguous [B, n, C] tensor, the main
+    path's cls_pred layout. ``bf16=False`` keeps the f32 sigmoid."""
+    x = torch.sigmoid(torch.from_numpy(
+        2 + 0.05 * rng.randn(b, n, c).astype(np.float32)))
+    if bf16:
+        x = x.bfloat16().float()
+    x[torch.from_numpy(rng.rand(b, n, c) < 0.05)] = -1.0
+    x = x.transpose(1, 2)
+    return x.contiguous() if layout == 'contiguous' else x
+
+
+def _padded(scores, m=128):
+    """The reference's own padding: -inf to m * ceil(n / m), [R, m, s]."""
+    rows = scores.reshape(-1, scores.shape[-1]).numpy()
+    s = -(-rows.shape[1] // m)
+    pad = np.full((rows.shape[0], m * s - rows.shape[1]), -np.inf, np.float32)
+    return np.concatenate([rows, pad], 1).reshape(-1, m, s)
+
+
+@pytest.mark.parametrize('cap', [1, 16])
+@pytest.mark.parametrize('n', [1, 129, 1000, 3000])
+@pytest.mark.parametrize('layout', ['contiguous', 'transposed'])
+def test_segment_topk_rows_plain_matches_pallas(layout, n, cap):
+    """Score rows read where they lie (n not a multiple of 128, the
+    transposed cls_pred view) equal the Pallas kernel (interpret mode) and
+    the plain version on the reference's padded input. Exact."""
+    import jax.numpy as jnp
+    from masklab_tpu.ops.pallas.topk_kernel import segment_topk_pallas
+    scores = _score_rows(np.random.RandomState(n), 2, 3, n, layout)
+    got_v, got_i = kc.segment_topk_rows_plain(scores, cap)
+    x = _padded(scores)
+    want_v, want_i = segment_topk_pallas(jnp.asarray(x), cap, interpret=True)
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    plain_v, plain_i = kc.segment_topk_plain(torch.from_numpy(x), cap)
+    assert torch.equal(got_v, plain_v) and torch.equal(got_i, plain_i)
+
+
+@pytest.mark.parametrize('layout,groups', [('contiguous', 1),
+                                           ('transposed', 5)])
+def test_segment_topk_rows_group_view_is_in_place(layout, groups):
+    """The kernel's [R0, G, n] view shares the scores' storage (no copy):
+    the transposed cls_pred view groups its C rows, whose elements lie C
+    apart; contiguous rows take G = 1. Rows stay in order."""
+    from masklab_tpu_torch.ops.cuda.topk import _group_view
+    scores = _score_rows(np.random.RandomState(0), 4, 5, 300, layout)
+    x3 = _group_view(scores)
+    assert x3.data_ptr() == scores.data_ptr() and x3.shape[1] == groups
+    assert torch.equal(x3.reshape(20, 300), scores.reshape(20, 300))
+
+
+TOPK_EDGES = [f'n={n} {layout} cap={cap}'
+              for n in (81840, 81920, 40000, 129, 1)
+              for layout in ('contiguous', 'transposed')
+              for cap in (1, 2, 15, 16)] + [
+    'R=1', 'fewer finite than cap', 'all -1', 'all equal', 's=3',
+    'f32 scores', 'one f32 score', 'signed zeros']
+
+
+def _topk_edge(name):
+    """K2's edge cases on the card as (scores, cap): every cap at several n
+    (the main path's 81840, a multiple of 128, a short row, one element),
+    contiguous rows and the transposed view, R = 1, columns with fewer
+    finite values than cap, all-(-1) and all-equal columns, s = 3 (not a
+    multiple of the launch tile); and scores that are not all bf16-exact,
+    which take the kernel's (value, row) keys: f32 sigmoids, one f32 score
+    among bf16 ones (that block alone), +0.0 and -0.0 mixed."""
+    rng = np.random.RandomState(3)
+    if name.startswith('n='):
+        n, layout, cap = name.split()
+        n, cap = int(n[2:]), int(cap[4:])
+        return _score_rows(rng, 16 if n > 129 else 2, 5, n, layout), cap
+    if name == 'R=1':
+        return _score_rows(rng, 1, 1, 81840, 'contiguous'), 16
+    if name == 'fewer finite than cap':
+        scores = _score_rows(rng, 2, 5, 3000, 'transposed').clone()
+        scores[..., 8 * 24:] = float('-inf')    # s = 24: 8 finite rows
+        return scores, 16
+    if name in ('all -1', 'all equal'):
+        return torch.full((2, 5, 3000), -1.0 if name == 'all -1' else 0.5), 16
+    if name == 's=3':
+        return _score_rows(rng, 2, 5, 300, 'transposed'), 16
+    if name == 'f32 scores':
+        return _score_rows(rng, 16, 5, 81840, 'transposed', bf16=False), 16
+    if name == 'one f32 score':
+        scores = _score_rows(rng, 16, 5, 81840, 'transposed').clone()
+        scores[3, 2, 40000] += 1e-4
+        return scores, 16
+    assert name == 'signed zeros'
+    signs = torch.from_numpy(rng.rand(2, 5, 3000) < 0.5)
+    return torch.where(signs, 0.0, -0.0), 16
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('name', TOPK_EDGES)
+def test_segment_topk_rows_kernel_matches_plain(cuda, name):
+    """Exact, one launch, scores read in place; the main path's call form
+    is 'n=81840 transposed cap=16' ([16, 5, 81840], the transpose of
+    cls_pred)."""
+    scores, cap = _topk_edge(name)
+    scores = scores.to(cuda)
+    before = kc.launch_counts()['segment_topk']
+    vals, idx = kc.segment_topk_rows(scores, cap)
+    assert kc.launch_counts()['segment_topk'] == before + 1
+    pv, pi = kc.segment_topk_rows_plain(scores, cap)
+    assert torch.equal(vals, pv) and torch.equal(idx, pi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('exact', [True, False])
+@pytest.mark.parametrize('m', [8, 40, 256])
+def test_segment_topk_kernel_padded_any_m(cuda, m, exact):
+    """The padded form at other segment lengths: m = 256 takes eight slices
+    of 32 rows, m = 40 a slice of 10 rows, m = 8 one short chunk; with both
+    kinds of key (values on a 1/16 grid, bf16-exact with many ties, and f32
+    ones)."""
+    rng = np.random.RandomState(m)
+    v = rng.rand(6, m, 300).astype(np.float32)
+    if exact:
+        v = np.round(v * 16) / 16
+    x = torch.from_numpy(v).to(cuda)
+    vals, idx = kc.segment_topk(x, 16)
+    pv, pi = kc.segment_topk_plain(x, 16)
+    assert torch.equal(vals, pv) and torch.equal(idx, pi)
+
+
 # ---- K3: NMS keep-mask ----
 
 def _nms_case(seed, r=3, n=64):

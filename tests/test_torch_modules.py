@@ -300,6 +300,30 @@ def test_candidate_pool_segment_path():
     assert tnms.pool_fallbacks == before
 
 
+def test_candidate_pool_transposed_cls_pred_view():
+    """The main path's call form: the masked scores are the [B, C, N]
+    transpose of a contiguous [B, N, C] cls_pred (strides (N*C, 1, C)),
+    which K2 reads in place; n is not a multiple of 128 and class 2 has
+    fewer valid anchors than k. Exact, dead slots included."""
+    rng = np.random.RandomState(9)
+    b, n, c, k, floor = 2, 3000, 3, 64, 0.5
+    cls = 1 / (1 + np.exp(-(1.5 + 0.3 * rng.randn(b, n, c))))
+    cls[..., 2] *= np.where(rng.rand(b, n) < 0.01, 1.0, 0.3)
+    cls = np.round(cls.astype(np.float32) * 256) / 256       # exact ties
+    scores_t = torch.from_numpy(cls.astype(np.float32)).transpose(1, 2)
+    masked = torch.where(scores_t >= floor, scores_t,
+                         torch.full_like(scores_t, -1.0))
+    assert masked.stride() == (n * c, 1, c)
+    before = tnms.pool_fallbacks
+    got_v, got_i = tnms.candidate_pool(masked, k, floor=floor, sort_below=0)
+    assert tnms.pool_fallbacks == before
+    want_v, want_i = jax_candidate_pool(jnp.asarray(masked.numpy()), k,
+                                        floor=floor, sort_below=0)
+    assert (got_v.numpy() == -1).any()
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+
+
 def test_candidate_pool_certificate_failure_falls_back():
     """The top 40 scores of one row all sit in segment 5: the segment keeps
     16 of them, the certificate fails and the exact top-k answers."""
