@@ -17,21 +17,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain version and, where one exists, the one PyTorch call computing
      the same function (``library_ms``); K3's device time split into the
      bitmask build and the sweep; K2 timed with the L2 flushed before each
-     launch (its ``ms``) and back to back, and the whole candidate pool
-     around it (``pool_ms``);
-  4. reference: a narrow model (width 32, depth 1, f32, 512 px) on the card
-     against the same model on the CPU, where every kernel's plain version
-     runs instead;
-  5. serve: the headline configuration (mobilenet, width 128, depth 4, bf16,
-     forced-dense, 512 px, batch 16) behind ``MaskLabPredictor`` answers 3
-     raw-mode requests with every launch and every fallback of the
-     candidate pool's certificate counted; each request's model outputs
-     must be finite and every slot must fill. One more request, traced with
-     ``torch.profiler``, splits a request's host and device time by the
-     predictor's stage spans.
+     launch (its ``ms``) and back to back, the whole candidate pool around
+     it (``pool_ms``), and at the road preset's call form (exact, cold);
+  4. reference: narrow float32 models (width 32, depth 1, 512 px) of the
+     headline configuration and of the road preset on the card against the
+     same models on the CPU, where every kernel's plain version runs;
+  5. serve: two deployments behind ``MaskLabPredictor``, forced dense, 512
+     px: the headline (mobilenet, width 128, depth 4, bf16, batch 16) and
+     the road preset (seresnet34, squeeze-excite heads, bf16, batch 8).
+     Each answers 3 requests in each output mode (raw, visualize,
+     summarize), each mode with its launch counts and certificate
+     fallbacks counted from 0 just before it; each request's model outputs
+     must be finite, every slot must fill, every kernel must launch on
+     every forward, and each mode's outputs have their shapes and finite
+     analytics. One more request per mode, traced with ``torch.profiler``,
+     splits its host and device time by the predictor's stage spans
+     (``analytics`` and ``draw`` inside ``postprocess``). On the headline
+     predictor also: the visualize / summarize postprocess of the same
+     model outputs on the card and on the CPU (frames exact, analytics to
+     the CPU tests' tolerance); 16 concurrent clients through a
+     ``MicroBatcher`` (each answered, a batch above 1); HTTP and gRPC
+     round trips on localhost.
 
-Then it prints the ``kernels`` JSON line, the card line and, last,
-``{"ok": true, "device": {...}}``. It needs a CUDA card and the repo.
+Then it prints the ``kernels`` JSON line (each kernel's ``launches`` from
+the headline raw path, ``launches_by_path`` for every path), the card line
+and, last, ``{"ok": true, "device": {...}}``. It needs a CUDA card, the
+repo, and cv2 and grpc for the servers.
 
 ``--kernels-only`` runs phases 1-3 at the main path's shapes alone (no
 edge cases, no split of K3): copied into another tree of the repo that
@@ -40,9 +51,11 @@ comparing two trees in one call.
 """
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -55,8 +68,13 @@ H100_F32_FLOPS = 67e12         # FP32 outside the tensor cores
 # the removed word per box, one shared-memory load more per kept box
 SWEEP_CYCLES_PER_BOX = 30
 SWEEP_CYCLES_PER_KEEP = 30
-BATCH, SIZE, REQUESTS = 16, 512, 3
+BATCH, ROAD_BATCH, SIZE, REQUESTS = 16, 8, 512, 3
 DEVICE = 'cuda'
+MODES = ('raw', 'visualize', 'summarize')
+# kernel launches per forward at 512 px, forced dense: K1 in the 4
+# GroupNorms of each of the 3 mask-head levels (14x14 crops: 196 pixels,
+# ragged for 16 groups), K2 once for the candidate pool, K3 in both stages
+PER_FORWARD = {'band_groupnorm': 12, 'segment_topk': 1, 'nms_keep': 2}
 K1_F32_ATOL = 2e-5             # f32 statistics summed in another order
 # bf16, in ulps at operand scale. Against the plain version: it rounds m1,
 # inv, scale, bias and four operations to bf16, and even the exactly rounded
@@ -361,6 +379,23 @@ def check_k2(kc, rng, edges: bool):
                pool_ms=device_ms(pool, 50),
                library_ms=device_ms(cold(library), 200, exclude=flushes),
                library_call_ms=time_ms(library, 200))
+    # the road preset's call form: [8, 5, 81600] (5 ratios x 3 scales on
+    # C3-C5 + P6 at 512 px), the pool's k = 128 with the same cap
+    rb, rn = 8, 81600
+    road = k2_scores(rng, rb, c, rn)
+    got = kc.segment_topk_rows(road, cap)
+    want = kc.segment_topk_rows_plain(road, cap)
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError('segment_topk differs from plain at the road '
+                             "preset's call form")
+    rs = -(-rn // m)
+    out.update(road_shape=f'[{rb}, {c}, {rn}] f32 (transposed [B, N, C]), '
+               f'cap {cap}',
+               road_device_ms=device_ms(cold(lambda: kc.segment_topk_rows(
+                   road, cap)), 200, 'segment_topk'),
+               road_bound_ms=bound_ms(rb * c * rn * 4
+                                      + 2 * rb * c * cap * rs * 4,
+                                      rb * c * rn)[0])
     if edges:
         bad = []
         cases = k2_edges(rng)
@@ -498,28 +533,43 @@ def check_k3(kc, rng, edges: bool):
                 chain_bound_ms=chain_cycles / max_sm_clock_hz() * 1e3, **out)
 
 
-def narrow_config(mt):
-    cfg = mt.ModelConfiguration()
-    cfg.backbone.backbone_type = 'mobilenet'
+def narrow(cfg):
+    """Width 32, depth 1: the card-vs-CPU check's model."""
     cfg.backbone.num_features = 32
-    cfg.detection.num_features = 32
-    cfg.detection.num_depth = 1
-    cfg.instance.num_features = 32
-    cfg.instance.num_depth = 1
+    for group in (cfg.detection, cfg.instance, cfg.semantic):
+        group.num_features = 32
+        group.num_depth = 1
     cfg.semantic.num_aspp_features = 32
-    cfg.semantic.num_features = 32
-    cfg.semantic.num_depth = 1
     return cfg
 
 
-def check_reference(mt, rng):
-    """The narrow model on the card vs on the CPU: dense heads within 1e-4;
-    NMS fed the card's own scores and boxes gives the card's proposals
-    exactly; the mask branch fed the card's features and proposals gives
-    the card's masks within 1e-4."""
+def headline_config(mt):
+    """bench.py's headline: mobilenet, widths 128, depth 4, bf16, 512 px."""
+    cfg = mt.ModelConfiguration()
+    cfg.backbone.backbone_type = 'mobilenet'
+    cfg.compute.compute_dtype = 'bfloat16'
+    cfg.postprocess.resolution = (SIZE, SIZE)
+    return cfg
+
+
+def road_config(mt):
+    """bench.py's second inference configuration: the road preset
+    (seresnet34, squeeze-excite heads, 5 ratios x 3 scales, k = 128 pool),
+    bf16, 512 px, one card (``mesh_data`` 1)."""
+    cfg = mt.road_project_config()
+    cfg.compute.compute_dtype = 'bfloat16'
+    cfg.compute.mesh_data = 1
+    cfg.postprocess.resolution = (SIZE, SIZE)
+    return cfg
+
+
+def check_reference(mt, rng, cfg):
+    """A narrow float32 model at 512 px on the card vs on the CPU: dense
+    heads within 1e-4; NMS fed the card's own scores and boxes gives the
+    card's proposals exactly; the mask branch fed the card's features and
+    proposals gives the card's masks within 1e-4."""
     from masklab_tpu_torch.ops.boxes import decode_boxes
     from masklab_tpu_torch.ops.nms import batched_class_aware_nms
-    cfg = narrow_config(mt)
     det = cfg.detection
     images = torch.from_numpy(
         rng.randint(0, 256, (2, SIZE, SIZE, 3)).astype(np.float32))
@@ -561,10 +611,11 @@ def check_reference(mt, rng):
     filled = int((gpu['props'][..., 4] >= 0).sum())
     if filled != 2 * det.nms_max_output_size:
         raise AssertionError(f'reference: {filled} proposal slots filled')
+    errs['anchors'] = gpu['out']['cls_pred'].shape[1]
     return errs
 
 
-def stage_profile(predictor, images):
+def stage_profile(predictor, images, mode):
     """One traced request, split by the predictor's ``stage:`` spans. For
     each stage: ``host_ms``, the span on the host clock (the tracer's own
     cost included); ``device_ms``, from the stage's first device operation
@@ -577,7 +628,7 @@ def stage_profile(predictor, images):
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         start = time.perf_counter()
-        predictor.predict(images)
+        predictor.predict(images, mode)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - start) * 1e3
     host, device, ops = {}, {}, []
@@ -608,18 +659,48 @@ def stage_profile(predictor, images):
                 top_device_ms=dict(top))
 
 
-def serve(mt, kc, rng):
-    """Headline config behind the predictor: 3 counted raw requests."""
-    from masklab_tpu_torch.ops import nms
-    cfg = mt.ModelConfiguration()
-    cfg.backbone.backbone_type = 'mobilenet'
-    cfg.compute.compute_dtype = 'bfloat16'
-    cfg.postprocess.resolution = (SIZE, SIZE)
+def deployment(mt, cfg):
+    """A forced-dense model with seeded weights behind a predictor whose
+    default mode is 'visualize', as the servers use it."""
     model = mt.force_dense(mt.build_masklab(cfg, device=DEVICE, seed=0))
-    predictor = mt.MaskLabPredictor(model, device=DEVICE)
-    batches = [rng.randint(0, 256, (BATCH, SIZE, SIZE, 3)).astype(np.uint8)
-               for _ in range(REQUESTS)]
-    predictor.predict(batches[0])                     # warm-up, not counted
+    return model, mt.MaskLabPredictor(model, cfg, visualization=True,
+                                      device=DEVICE)
+
+
+def check_outputs(out: dict, mode: str, batch: int, max_out: int) -> None:
+    """Shapes and types of the mode's outputs; every detection slot filled
+    (forced dense); every analytics row finite."""
+    boxes = out['det_boxes']
+    if boxes.shape != (batch, max_out, 6):
+        raise AssertionError(f'{mode}: det_boxes shape {boxes.shape}')
+    filled = int((boxes[..., 4] >= 0).sum())
+    if filled != batch * max_out:
+        raise AssertionError(f'{mode}: {filled} of {batch * max_out} slots '
+                             'filled')
+    want = {'raw': {'padded_masks': ((batch, max_out, SIZE, SIZE),
+                                     np.uint8),
+                    'semantic': ((batch, SIZE, SIZE, 3), np.uint8)},
+            'visualize': {'visualize': ((batch, SIZE, SIZE, 3), np.uint8),
+                          'summarize': ((batch, max_out + 1, 11),
+                                        np.float32)},
+            'summarize': {'summarize': ((batch, max_out + 1, 11),
+                                        np.float32)}}[mode]
+    for key, (shape, dtype) in want.items():
+        if out[key].shape != shape or out[key].dtype != dtype:
+            raise AssertionError(f'{mode}: {key} {out[key].shape} '
+                                 f'{out[key].dtype}, want {shape} {dtype}')
+    if 'summarize' in out and not np.isfinite(out['summarize']).all():
+        raise AssertionError(f'{mode}: non-finite analytics rows')
+
+
+def serve_path(kc, model, predictor, batches, mode: str, max_out: int):
+    """One path of the deployment: REQUESTS counted requests in ``mode``
+    (after one warm-up), every kernel launch and every fallback of the
+    candidate pool's certificate counted from 0 just before them; the
+    model's outputs of each must be finite, each kernel launched on every
+    forward. Then one more request, traced, split by stage."""
+    from masklab_tpu_torch.ops import nms
+    predictor.predict(batches[0], mode)               # warm-up, not counted
     raw_keys = ('cls_pred', 'loc_pred', 'seg_pred', 'roi_boxes', 'roi_masks')
     finite = []                  # per counted request, one flag per raw key
     hook = model.register_forward_hook(lambda module, args, out: finite.append(
@@ -630,40 +711,219 @@ def serve(mt, kc, rng):
     latencies, outputs = [], []
     for images in batches:
         start = time.perf_counter()
-        outputs.append(predictor.predict(images))
+        outputs.append(predictor.predict(images, mode))
         latencies.append(time.perf_counter() - start)
     counts = kc.launch_counts()
     fallbacks = nms.pool_fallbacks
     hook.remove()
     if len(finite) != REQUESTS:
-        raise AssertionError(f'serve: {len(finite)} model forwards in '
+        raise AssertionError(f'{mode}: {len(finite)} model forwards in '
                              f'{REQUESTS} requests')
     for i, flags in enumerate(torch.stack(finite).cpu()):
         for k, ok in zip(raw_keys, flags.tolist()):
             if not ok:
-                raise AssertionError(f'serve: request {i}: non-finite {k}')
-    max_out = cfg.detection.nms_max_output_size
+                raise AssertionError(f'{mode}: request {i}: non-finite {k}')
     for out in outputs:
-        if out['det_boxes'].shape != (BATCH, max_out, 6):
-            raise AssertionError(f'det_boxes shape {out["det_boxes"].shape}')
-        filled = int((out['det_boxes'][..., 4] >= 0).sum())
-        if filled != BATCH * max_out:
-            raise AssertionError(f'{filled} of {BATCH * max_out} slots filled')
-        if out['padded_masks'].shape != (BATCH, max_out, SIZE, SIZE):
-            raise AssertionError(f'padded_masks shape '
-                                 f'{out["padded_masks"].shape}')
-    need = {'band_groupnorm': 12, 'segment_topk': 1, 'nms_keep': 2}
-    for name, per_forward in need.items():
+        check_outputs(out, mode, len(batches[0]), max_out)
+    for name, per_forward in PER_FORWARD.items():
         if counts[name] < per_forward * REQUESTS:
-            raise AssertionError(f'serve: {name} launched {counts[name]} '
+            raise AssertionError(f'{mode}: {name} launched {counts[name]} '
                                  f'times in {REQUESTS} forwards')
     total = sum(latencies)
-    stats = dict(img_per_s=BATCH * REQUESTS / total,
+    stats = dict(mode=mode, batch=len(batches[0]),
+                 img_per_s=len(batches[0]) * REQUESTS / total,
                  p50_batch_ms=statistics.median(latencies) * 1e3,
                  latencies_ms=[t * 1e3 for t in latencies],
-                 pool_fallbacks=fallbacks)
-    stats.update(stage_profile(predictor, batches[0]))
-    return counts, stats
+                 launches=counts, pool_fallbacks=fallbacks)
+    stats.update(stage_profile(predictor, batches[0], mode))
+    return stats
+
+
+def check_postprocess(model, predictor, frames):
+    """The same model outputs through the visualize and summarize
+    postprocess on the card and on the CPU: boxes and the annotated frame
+    exact; the analytics rows as tests/test_torch_serving.py holds them
+    (class, box, confidence and flag columns exact, pixel counts rtol 1e-6,
+    the my_road fit's columns rtol 5e-4, atol 1e-3)."""
+    x = torch.from_numpy(frames).to(DEVICE)
+    with torch.inference_mode():
+        down, in_hw, ds_hw = predictor._downsample(x)
+        out = model(down)
+        on_cpu = {k: v.cpu() for k, v in out.items()
+                  if isinstance(v, torch.Tensor)}
+        gpu = {mode: predictor._postprocess(out, x, down, in_hw, ds_hw, mode)
+               for mode in ('visualize', 'summarize')}
+        cpu = {mode: predictor._postprocess(on_cpu, x.cpu(), down.cpu(),
+                                            in_hw, ds_hw, mode)
+               for mode in ('visualize', 'summarize')}
+    errs = {}
+    for mode in gpu:
+        g = {k: v.cpu() for k, v in gpu[mode].items()}
+        c = cpu[mode]
+        if not torch.equal(g['det_boxes'], c['det_boxes']):
+            raise AssertionError(f'postprocess {mode}: boxes differ')
+        if 'visualize' in g:
+            changed = int((g['visualize'] != c['visualize']).any(-1).sum())
+            errs['visualize_changed_pixels'] = changed
+            if changed:
+                raise AssertionError(f'postprocess: {changed} frame pixels '
+                                     'differ between the card and the CPU')
+        gs, cs = g['summarize'], c['summarize']
+        exact = [0, 1, 2, 3, 4, 5, 10]
+        if not torch.equal(gs[..., exact], cs[..., exact]):
+            raise AssertionError(f'postprocess {mode}: analytics columns '
+                                 f'{exact} differ')
+        for cols, rtol in (([6], 1e-6), ([7, 8, 9], 5e-4)):
+            d = (gs[..., cols] - cs[..., cols]).abs()
+            excess = (d - 1e-3 - rtol * cs[..., cols].abs()).max().item()
+            errs[f'{mode}_cols_{cols[0]}_max_abs'] = d.max().item()
+            if excess > 0:
+                raise AssertionError(f'postprocess {mode}: columns {cols} '
+                                     f'outside tolerance by {excess}')
+    errs['frames'] = len(frames)
+    return errs
+
+
+def check_batching(predictor, rng, clients: int = 16):
+    """``clients`` threads each submit one 512 px frame (summarize) to a
+    MicroBatcher over the predictor, released together: each must be
+    answered with its own row, and at least one device batch must hold
+    more than one frame."""
+    from masklab_tpu_torch.serving.batching import MicroBatcher
+    frames = [rng.randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8)
+              for _ in range(clients)]
+    mb = MicroBatcher(predictor.predict, max_batch=clients, window_ms=50.0)
+    results, errors = {}, {}
+    barrier = threading.Barrier(clients)
+
+    def client(i):
+        barrier.wait()
+        try:
+            results[i] = mb.submit(frames[i], 'summarize')
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors[i] = exc
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(clients)]
+    start = time.perf_counter()
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    finally:
+        mb.close()
+    wall_ms = (time.perf_counter() - start) * 1e3
+    if errors or len(results) != clients:
+        raise AssertionError(f'batching: {len(results)} of {clients} '
+                             f'answered, errors {errors}')
+    for out in results.values():
+        if out['summarize'].shape[0] != 1 \
+                or not np.isfinite(out['summarize']).all():
+            raise AssertionError('batching: a malformed answer')
+    sizes = list(mb.batch_sizes)
+    if max(sizes) < 2:
+        raise AssertionError(f'batching: no batch above 1 ({sizes})')
+    return dict(clients=clients, batch_sizes=sizes, wall_ms=wall_ms)
+
+
+def check_servers(predictor, cfg, rng):
+    """Round trips on localhost: the HTTP server's default (JSON with the
+    base64 annotated JPEG), ``?outputs=summarize`` and ``?outputs=jpeg``;
+    the gRPC server's Predict."""
+    import base64
+    import tempfile
+    import urllib.request
+    import cv2
+    from masklab_tpu_torch.serving import (MaskLabGrpcServer, MaskLabServer,
+                                           send_image_to_grpc,
+                                           send_image_to_server)
+    labels = cfg.dataset.instance_labels
+    frame = rng.randint(0, 256, (SIZE, SIZE, 3)).astype(np.uint8)
+    ok, jpeg = cv2.imencode('.jpg', frame)
+    if not ok:
+        raise AssertionError('servers: jpeg encode failed')
+    body = jpeg.tobytes()
+    out = {}
+
+    def decoded_shape(data: bytes):
+        return cv2.imdecode(np.frombuffer(data, np.uint8), 1).shape
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'frame.jpg')
+        with open(path, 'wb') as f:
+            f.write(body)
+        http = MaskLabServer(predictor, port=0, instance_labels=labels)
+        http.start()
+        try:
+            start = time.perf_counter()
+            full = send_image_to_server(path, port=http.port, deadline_s=60)
+            out['http_visualize_ms'] = (time.perf_counter() - start) * 1e3
+            if not full['objs'] or decoded_shape(base64.b64decode(
+                    full['visualize_jpeg_b64'])) != (SIZE, SIZE, 3):
+                raise AssertionError('servers: HTTP visualize answer')
+            for query in ('summarize', 'jpeg'):
+                req = urllib.request.Request(
+                    f'http://localhost:{http.port}/predict?outputs={query}',
+                    data=body, method='POST')
+                start = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=60) as r:
+                    kind, data = r.headers['Content-Type'], r.read()
+                    header = r.headers.get('X-Masklab-Summary')
+                out[f'http_{query}_ms'] = (time.perf_counter() - start) * 1e3
+                if query == 'summarize':
+                    objs = json.loads(data)['objs']
+                else:
+                    objs = json.loads(header)
+                    if kind != 'image/jpeg' \
+                            or decoded_shape(data) != (SIZE, SIZE, 3):
+                        raise AssertionError('servers: HTTP jpeg answer')
+                if len(objs) != len(full['objs']):
+                    raise AssertionError(f'servers: HTTP {query}: '
+                                         f'{len(objs)} records')
+            out['http_records'] = len(full['objs'])
+        finally:
+            http.stop()
+        grpc_server = MaskLabGrpcServer(predictor, port=0,
+                                        instance_labels=labels)
+        grpc_server.start()
+        try:
+            start = time.perf_counter()
+            reply = send_image_to_grpc(path, port=grpc_server.port,
+                                       deadline_s=60)
+            out['grpc_ms'] = (time.perf_counter() - start) * 1e3
+        finally:
+            grpc_server.stop()
+        if len(reply['objs']) != len(full['objs']) or decoded_shape(
+                base64.b64decode(reply['visualize_jpeg_b64'])) != (
+                SIZE, SIZE, 3):
+            raise AssertionError('servers: gRPC answer')
+    return out
+
+
+def serve_deployment(mt, kc, rng, name, cfg, batch, extra=None):
+    """The deployment's three modes (raw, visualize, summarize), each with
+    its own launch counts; ``extra(model, predictor)`` runs further phases
+    on the same predictor."""
+    model, predictor = deployment(mt, cfg)
+    max_out = cfg.detection.nms_max_output_size
+    batches = [rng.randint(0, 256, (batch, SIZE, SIZE, 3)).astype(np.uint8)
+               for _ in range(REQUESTS)]
+    paths = {}
+    for mode in MODES:
+        stats = serve_path(kc, model, predictor, batches, mode, max_out)
+        paths[f'{name} {mode}'] = stats
+        print(f'serve {name} {mode}: b{batch} {stats["img_per_s"]:.2f} '
+              f'img/s, p50 batch {stats["p50_batch_ms"]:.2f} ms, latencies '
+              f'{[round(t, 2) for t in stats["latencies_ms"]]} ms, launches '
+              f'{json.dumps(stats["launches"])}, candidate-pool fallbacks '
+              f'{stats["pool_fallbacks"]} in {REQUESTS} requests',
+              flush=True)
+        print(f'stages {name} {mode}: {json.dumps(stats["stages"])}, '
+              f'busy share {stats["device_busy_share"]:.3f}', flush=True)
+    more = extra(model, predictor) if extra else {}
+    del model, predictor
+    torch.cuda.empty_cache()
+    return paths, more
 
 
 def main() -> int:
@@ -703,26 +963,47 @@ def main() -> int:
     print(f'kernel segment_topk: cold {k2["device_ms"]:.5f} ms, hot '
           f'{k2["device_hot_ms"]:.5f}{l2}, pool {k2["pool_ms"]:.5f}, '
           f'torch.topk {k2["library_ms"]:.5f} cold; f32 scores '
-          f'{k2.get("device_f32_ms")}', flush=True)
+          f'{k2.get("device_f32_ms")}; road form {k2["road_shape"]} cold '
+          f'{k2["road_device_ms"]:.5f} (bound {k2["road_bound_ms"]:.5f})',
+          flush=True)
     if args.kernels_only:
         finish(card, {'kernels': kernels})
         return 0
 
-    errs = check_reference(mt, rng)
-    print(f'reference: {json.dumps(errs)}', flush=True)
+    reference = {}
+    for name, cfg in (('headline', narrow(headline_config(mt))),
+                      ('road', narrow(road_config(mt)))):
+        cfg.compute.compute_dtype = 'float32'
+        reference[name] = check_reference(mt, rng, cfg)
+        print(f'reference {name}: {json.dumps(reference[name])}', flush=True)
 
-    counts, stats = serve(mt, kc, rng)
-    print(f'serve: {stats["img_per_s"]:.2f} img/s, p50 batch '
-          f'{stats["p50_batch_ms"]:.2f} ms, latencies '
-          f'{[round(t, 2) for t in stats["latencies_ms"]]} ms, '
-          f'launches {json.dumps(counts)}, candidate-pool fallbacks '
-          f'{stats["pool_fallbacks"]} in {REQUESTS} requests', flush=True)
-    print(f'stages: {json.dumps(stats["stages"])}', flush=True)
+    def headline_extras(model, predictor):
+        frames = rng.randint(0, 256, (4, SIZE, SIZE, 3)).astype(np.uint8)
+        more = dict(postprocess=check_postprocess(model, predictor, frames))
+        print(f'postprocess card vs CPU: {json.dumps(more["postprocess"])}',
+              flush=True)
+        more['batching'] = check_batching(predictor, rng)
+        print(f'batching: {json.dumps(more["batching"])}', flush=True)
+        more['servers'] = check_servers(predictor, headline_config(mt), rng)
+        print(f'servers: {json.dumps(more["servers"])}', flush=True)
+        return more
+
+    serve, more = serve_deployment(mt, kc, rng, 'headline',
+                                   headline_config(mt), BATCH,
+                                   headline_extras)
+    road, _ = serve_deployment(mt, kc, rng, 'road', road_config(mt),
+                               ROAD_BATCH)
+    serve.update(road)
+    main_path = serve['headline raw']
     for k in kernels:
-        k['launches'] = counts[k['name']]
+        k['launches'] = main_path['launches'][k['name']]
+        k['launches_by_path'] = {p: v['launches'][k['name']]
+                                 for p, v in serve.items()}
         if k['name'] == 'segment_topk':
-            k['pool_fallbacks'] = stats['pool_fallbacks']
-    finish(card, {'kernels': kernels, 'serve': stats})
+            k['pool_fallbacks'] = {p: v['pool_fallbacks']
+                                   for p, v in serve.items()}
+    finish(card, {'kernels': kernels, 'serve': serve,
+                  'reference': reference, **more})
     return 0
 
 

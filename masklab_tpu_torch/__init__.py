@@ -8,11 +8,13 @@ three TPU kernels of the reference are hand-written CUDA kernels under
 ``csrc/`` (see ``ops/cuda``), built with nvcc at first use.
 
 Entry points (``build_masklab``, ``MaskLabPredictor``) run on the CUDA card
-unless the caller passes ``device='cpu'``.
+unless the caller passes ``device='cpu'``; the servers and
+``process_folder`` (``serving``) take a predictor.
 """
 from .config import ModelConfiguration
 from .device import resolve_device
 from .models.masklab import MaskLab, build_masklab
+from .presets import road_project_config
 from .prior import PriorBoxes, generate_priors, priors_from_config
 from .serving.predictor import MaskLabPredictor
 from .weights import force_dense, init_weights, load_flax_variables
@@ -21,5 +23,6 @@ __version__ = '0.1.0'
 
 __all__ = ['ModelConfiguration', 'MaskLab', 'build_masklab',
            'MaskLabPredictor', 'load_flax_variables', 'init_weights',
-           'force_dense', 'resolve_device', 'PriorBoxes', 'generate_priors',
-           'priors_from_config', '__version__']
+           'force_dense', 'resolve_device', 'road_project_config',
+           'PriorBoxes', 'generate_priors', 'priors_from_config',
+           '__version__']

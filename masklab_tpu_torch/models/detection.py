@@ -50,18 +50,21 @@ def _rows(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 class ClassificationSubNet(nn.Module):
-    """Per-level HeadBlock + 3x3 output conv (focal bias init) + sigmoid."""
+    """Per-level HeadBlock (squeeze-excite optional) + 3x3 output conv
+    (focal bias init) + sigmoid."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int,
                  num_depth: int = 4, num_features: int = 256,
                  num_priors: int = 9, groups: int = 16,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_squeeze_excite: bool = False,
+                 squeeze_ratio: float = 16.0):
         super().__init__()
         self.num_classes = num_classes
         self.num_blocks = len(in_channels)
         for idx, ch in enumerate(in_channels):
             self.add_module(f'block_{idx}', HeadBlock(
-                ch, num_depth, num_features, groups, dtype))
+                ch, num_depth, num_features, groups, dtype,
+                use_squeeze_excite, squeeze_ratio))
             self.add_module(f'output_{idx}', same_conv(
                 num_features if num_depth else ch,
                 num_priors * num_classes, 3, dtype=dtype))
@@ -83,12 +86,15 @@ class BoxRegressionSubNet(nn.Module):
 
     def __init__(self, in_channels: Sequence[int], num_depth: int = 4,
                  num_features: int = 256, num_priors: int = 9,
-                 groups: int = 16, dtype=torch.float32):
+                 groups: int = 16, dtype=torch.float32,
+                 use_squeeze_excite: bool = False,
+                 squeeze_ratio: float = 16.0):
         super().__init__()
         self.num_blocks = len(in_channels)
         for idx, ch in enumerate(in_channels):
             self.add_module(f'block_{idx}', HeadBlock(
-                ch, num_depth, num_features, groups, dtype))
+                ch, num_depth, num_features, groups, dtype,
+                use_squeeze_excite, squeeze_ratio))
             self.add_module(f'output_{idx}', same_conv(
                 num_features if num_depth else ch, num_priors * 4, 3,
                 dtype=dtype))

@@ -51,9 +51,12 @@ class LevelMaskHead(nn.Module):
     """One pyramid level's head: [N, C, h, w] -> [N, classes, 2h, 2w]."""
 
     def __init__(self, in_ch: int, num_classes: int, num_depth: int,
-                 num_features: int, groups: int, dtype=torch.float32):
+                 num_features: int, groups: int, dtype=torch.float32,
+                 use_squeeze_excite: bool = False,
+                 squeeze_ratio: float = 16.0):
         super().__init__()
-        self.block = HeadBlock(in_ch, num_depth, num_features, groups, dtype)
+        self.block = HeadBlock(in_ch, num_depth, num_features, groups, dtype,
+                               use_squeeze_excite, squeeze_ratio)
         feats = num_features if num_depth else in_ch
         self.upsample = PixelShuffleUp(feats, num_features, dtype)
         self.output = conv2d(num_features, num_classes, 1, dtype=dtype)
@@ -64,16 +67,21 @@ class LevelMaskHead(nn.Module):
 
 
 class MaskSubNet(nn.Module):
-    """Per-level mask heads (``level_0`` .. ``level_{max_k}``)."""
+    """Per-level mask heads (``level_0`` .. ``level_{max_k}``). A head's
+    squeeze-excite pools each RoI crop alone, as the reference's heads on
+    [N, h, w, C] crops do."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int,
                  num_depth: int = 4, num_features: int = 256,
-                 groups: int = 16, dtype=torch.float32):
+                 groups: int = 16, dtype=torch.float32,
+                 use_squeeze_excite: bool = False,
+                 squeeze_ratio: float = 16.0):
         super().__init__()
         self.num_classes = num_classes
         for i, ch in enumerate(in_channels):
             self.add_module(f'level_{i}', LevelMaskHead(
-                ch, num_classes, num_depth, num_features, groups, dtype))
+                ch, num_classes, num_depth, num_features, groups, dtype,
+                use_squeeze_excite, squeeze_ratio))
         self.num_levels = len(in_channels)
 
     def forward(self, features: Sequence[torch.Tensor], boxes: torch.Tensor,

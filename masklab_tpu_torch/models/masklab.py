@@ -3,10 +3,12 @@
 Port of ``masklab_tpu/models/masklab.py`` (``raw_heads`` :138-164,
 ``mask_branch`` :166-185, ``__call__`` :189-207): shared backbone, FPN,
 cls/loc heads, detection-config NMS, the routed mask branch and the
-semantic head. ``trainer_outputs`` belongs to the training slice and is not
-ported yet. Public outputs keep the reference's layouts: NHWC images in,
-``cls_pred`` [B, N, C], ``roi_boxes`` [B, K, 6], ``roi_masks``
-[B, K, 28, 28, C] and ``seg_pred`` [B, H/8, W/8, 3] out.
+semantic head, with squeeze-excite heads where the configuration asks for
+them (the road preset). Separable heads (``use_separable_conv``) are not
+ported yet and raise; ``trainer_outputs`` belongs to the training slice.
+Public outputs keep the reference's layouts: NHWC images in, ``cls_pred``
+[B, N, C], ``roi_boxes`` [B, K, 6], ``roi_masks`` [B, K, 28, 28, C] and
+``seg_pred`` [B, H/8, W/8, 3] out.
 """
 from __future__ import annotations
 
@@ -18,8 +20,7 @@ from torch.profiler import record_function
 
 from ..config import ModelConfiguration
 from ..device import resolve_device
-from ..nn.backbone import BackboneNetwork, grid_padding
-from ..nn.backbone.mobilenet import CHANNELS as BACKBONE_CHANNELS
+from ..nn.backbone import BackboneNetwork, backbone_channels, grid_padding
 from ..ops.boxes import decode_boxes
 from ..ops.nms import batched_class_aware_nms
 from ..prior import generate_priors, priors_from_config
@@ -59,47 +60,47 @@ class MaskLab(nn.Module):
         self.backbone = BackboneNetwork(cfg.backbone.backbone_type, outputs,
                                         cfg.backbone.num_features, dtype)
 
+        body_channels = backbone_channels(cfg.backbone.backbone_type)
+
         def channels(name):
             if name.startswith('P'):
                 return cfg.backbone.num_features
-            return BACKBONE_CHANNELS[name]
+            return body_channels[name]
 
-        det = cfg.detection
+        det, ins, sem = cfg.detection, cfg.instance, cfg.semantic
+        for name, group in (('detection', det), ('instance', ins),
+                            ('semantic', sem)):
+            if group.use_separable_conv:
+                raise NotImplementedError(
+                    f'{name}.use_separable_conv heads are not ported to '
+                    'PyTorch yet (ROADMAP.md, Queue 1)')
         self.fpn = FeaturePyramid([channels(n) for n in self.fpn_names],
                                   det.num_features, dtype)
         feat_ch = ([det.num_features] * len(self.fpn_names)
                    + [channels(n) for n in self.other_names])
         common = dict(num_depth=det.num_depth, num_features=det.num_features,
                       num_priors=len(self.prior), groups=det.groups,
-                      dtype=dtype)
-        for name, flag in (('use_separable_conv', det.use_separable_conv),
-                           ('use_squeeze_excite', det.use_squeeze_excite),
-                           ('instance.use_separable_conv',
-                            cfg.instance.use_separable_conv),
-                           ('instance.use_squeeze_excite',
-                            cfg.instance.use_squeeze_excite),
-                           ('semantic.use_separable_conv',
-                            cfg.semantic.use_separable_conv),
-                           ('semantic.use_squeeze_excite',
-                            cfg.semantic.use_squeeze_excite)):
-            if flag:
-                raise NotImplementedError(
-                    f'{name} heads are not ported to PyTorch yet '
-                    '(ROADMAP.md, Queue 1: road preset)')
-        self.cls_subnet = ClassificationSubNet(feat_ch, num_det, **common)
-        self.loc_subnet = BoxRegressionSubNet(feat_ch, **common)
-        ins = cfg.instance
+                      dtype=dtype, squeeze_ratio=det.squeeze_ratio)
+        self.cls_subnet = ClassificationSubNet(
+            feat_ch, num_det, use_squeeze_excite=det.use_squeeze_excite,
+            **common)
+        # the reference's quirk, kept: the box head's squeeze-excite follows
+        # use_separable_conv (masklab_tpu/models/masklab.py:97-101), so the
+        # road preset's box head has none
+        self.loc_subnet = BoxRegressionSubNet(
+            feat_ch, use_squeeze_excite=det.use_separable_conv, **common)
         self.mask_subnet = MaskSubNet(feat_ch[:ins.max_k + 1], num_det,
                                       ins.num_depth, ins.num_features,
-                                      ins.groups, dtype)
-        sem = cfg.semantic
+                                      ins.groups, dtype,
+                                      ins.use_squeeze_excite,
+                                      ins.squeeze_ratio)
         self.aspp = ASPPNetwork(channels(sem.aspp_input_name),
                                 sem.num_aspp_features, sem.atrous_rate,
                                 sem.atrous_groups, dtype)
         self.seg_subnet = SegmentationSubNet(
             sem.num_aspp_features, channels(sem.skip_input_name), num_seg,
             sem.num_depth, sem.num_features, sem.num_skip_features,
-            sem.groups, dtype)
+            sem.groups, dtype, sem.use_squeeze_excite, sem.squeeze_ratio)
 
     def _priors(self, h: int, w: int, device: torch.device) -> torch.Tensor:
         key = (h, w, str(device))

@@ -1,22 +1,42 @@
 """Backbone: preprocess -> body -> endpoints -> P6/P7 extras.
 
 Port of ``BackboneNetwork`` (``masklab_tpu/nn/backbone/__init__.py:56-127``)
-for the mobilenet body. The other backbones of the reference's zoo are not
+for the mobilenet body (the headline configuration) and the seresnet34
+body (the road preset). The other backbones of the reference's zoo are not
 ported yet (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Sequence
 
 import torch
 from torch import nn
 
-from ..layers import GroupNorm, conv2d, pad_valid_s2
-from .mobilenet import CHANNELS as _MOBILENET_CHANNELS
-from .mobilenet import MobileNetV1
+from ..layers import GroupNorm, conv2d, pad_same_s2, pad_valid_s2
+from . import mobilenet, resnet
 from .preprocess import PREPROCESS_COMBOS, preprocess_for
 
-PORTED_BACKBONES = ('mobilenet',)
+# name -> (body factory, endpoint channels, the body's flax module name)
+_BODIES = {
+    'mobilenet': (lambda dtype: mobilenet.MobileNetV1(dtype=dtype),
+                  mobilenet.CHANNELS, 'MobileNetV1_0'),
+    'seresnet34': (resnet.seresnet34, resnet.CHANNELS, 'CMResNet_0'),
+}
+PORTED_BACKBONES = tuple(_BODIES)
+
+
+def _check_ported(backbone_type: str) -> str:
+    name = backbone_type.lower()
+    if name not in _BODIES:
+        raise NotImplementedError(
+            f'backbone {backbone_type!r} is not ported to PyTorch yet; '
+            f'ported: {PORTED_BACKBONES} (see ROADMAP.md, Queue 1)')
+    return name
+
+
+def backbone_channels(backbone_type: str) -> Dict[str, int]:
+    """Channels of the body's C1..C5 endpoints."""
+    return _BODIES[_check_ported(backbone_type)][1]
 
 
 def grid_padding(backbone_type: str) -> str:
@@ -26,24 +46,23 @@ def grid_padding(backbone_type: str) -> str:
 
 class BackboneNetwork(nn.Module):
     """Takes NHWC float images, returns {name: NCHW map} for every name in
-    ``backbone_outputs``. P6 is the relu'd conv of the last C endpoint
-    (before any norm); P7 convolves GroupNorm(32) of P6. Mobilenet's extras
-    use zero-pad (0,1) + VALID."""
+    ``backbone_outputs``. P6 is the relu'd stride-2 3x3 conv of the last C
+    endpoint (before any norm); P7 convolves GroupNorm(32) of P6.
+    Mobilenet's extras zero-pad (0, 1) and convolve VALID; the others pad
+    as XLA's 'SAME' does, which depends on each map's parity."""
 
     def __init__(self, backbone_type: str = 'mobilenet',
                  backbone_outputs: Sequence[str] = ('C3', 'C4', 'C5', 'P6',
                                                     'P7'),
                  num_features: int = 128, dtype=torch.float32):
         super().__init__()
-        name = backbone_type.lower()
-        if name not in PORTED_BACKBONES:
-            raise NotImplementedError(
-                f'backbone {backbone_type!r} is not ported to PyTorch yet; '
-                f'ported: {PORTED_BACKBONES} (see ROADMAP.md, Queue 1)')
+        name = _check_ported(backbone_type)
+        factory, channels, self.body_name = _BODIES[name]
         self.backbone_type = name
         self.backbone_outputs = tuple(backbone_outputs)
         self.dtype = dtype
-        self.MobileNetV1_0 = MobileNetV1(dtype=dtype)
+        self.add_module(self.body_name, factory(dtype))
+        self.pad_s2 = pad_valid_s2 if name == 'mobilenet' else pad_same_s2
         c_taps = [k for k in ('C1', 'C2', 'C3', 'C4', 'C5')
                   if k in self.backbone_outputs]
         if not c_taps:
@@ -52,7 +71,7 @@ class BackboneNetwork(nn.Module):
                 f'endpoint (got {self.backbone_outputs}); the P6/P7 extras '
                 'are built from the last included C endpoint')
         self.last_c = c_taps[-1]
-        last_ch = _MOBILENET_CHANNELS[self.last_c]
+        last_ch = channels[self.last_c]
         if 'P6' in self.backbone_outputs or 'P7' in self.backbone_outputs:
             self.extras_P6_conv = conv2d(last_ch, num_features, 3, stride=2,
                                          dtype=dtype)
@@ -71,23 +90,23 @@ class BackboneNetwork(nn.Module):
 
     def forward(self, images: torch.Tensor):
         x = preprocess_for(self.backbone_type, images)
-        x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
+        x = x.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        endpoints = self.MobileNetV1_0(x)
+        endpoints = getattr(self, self.body_name)(x)
         outputs = {k: v for k, v in endpoints.items()
                    if k in self.backbone_outputs}
         if hasattr(self, 'extras_P6_conv'):
             p6 = torch.relu(self.extras_P6_conv(
-                pad_valid_s2(endpoints[self.last_c])))
+                self.pad_s2(endpoints[self.last_c])))
             self._check_nonempty('P6', p6)
             if 'P6' in self.backbone_outputs:
                 outputs['P6'] = p6
             if 'P7' in self.backbone_outputs:
-                p7 = self.extras_P7_conv(pad_valid_s2(self.extras_P6_norm(p6)))
+                p7 = self.extras_P7_conv(self.pad_s2(self.extras_P6_norm(p6)))
                 self._check_nonempty('P7', p7)
                 outputs['P7'] = torch.relu(p7)
         return outputs
 
 
-__all__ = ['BackboneNetwork', 'grid_padding', 'preprocess_for',
-           'PREPROCESS_COMBOS', 'PORTED_BACKBONES']
+__all__ = ['BackboneNetwork', 'backbone_channels', 'grid_padding',
+           'preprocess_for', 'PREPROCESS_COMBOS', 'PORTED_BACKBONES']

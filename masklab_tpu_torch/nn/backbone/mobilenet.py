@@ -54,8 +54,9 @@ class MobileNetV1(nn.Module):
             ch = out
 
     def forward(self, x):
+        """x: float NCHW frames, cast here to the convs' dtype."""
         endpoints = {}
-        x = self.stem(x)
+        x = self.stem(x.to(self.stem.Conv_0.weight.dtype))
         for i in range(1, len(_BLOCKS) + 1):
             x = getattr(self, f'pw{i}')(getattr(self, f'dw{i}')(x))
             if i in _ENDPOINTS:

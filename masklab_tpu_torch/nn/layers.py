@@ -6,9 +6,10 @@ GroupNorm needs is a free ``permute``. Submodules carry the flax module
 names of the reference (``Conv_0``, ``GroupNorm_0``, ...), so the weight
 bridge (``masklab_tpu_torch/weights.py``) maps parameters by path.
 
-Not ported here: ``SqueezeExcite`` and ``MobileSeparableConv`` (off the
-main path; the road preset needs them) and the space-to-depth ``StemConv``
-(a TPU form of the plain stride-2 stem conv).
+``SqueezeExcite`` gates the inputs of the heads' convs in the road preset.
+Not ported here: ``MobileSeparableConv`` (separable heads, which no preset
+uses; ROADMAP.md, Queue 1) and the space-to-depth ``StemConv`` (a TPU form
+of the plain stride-2 stem conv).
 """
 from __future__ import annotations
 
@@ -40,6 +41,18 @@ def same_conv(in_ch: int, out_ch: int, kernel: int, bias: bool = True,
 def pad_valid_s2(x: torch.Tensor) -> torch.Tensor:
     """Keras stride-2 padding: zero-pad bottom/right by one (NCHW)."""
     return F.pad(x, (0, 1, 0, 1))
+
+
+def pad_same_s2(x: torch.Tensor) -> torch.Tensor:
+    """XLA 'SAME' padding of a 3x3 stride-2 conv (NCHW): each spatial axis
+    of size n gets ceil(n / 2) outputs and max((ceil(n / 2) - 1) * 2 + 3 -
+    n, 0) zeros, the smaller half before: (0, 1) on an even axis and (1, 1)
+    on an odd one."""
+    pads = []
+    for n in (x.shape[-1], x.shape[-2]):
+        total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
 
 
 class GroupNorm(nn.Module):
@@ -88,22 +101,45 @@ class GroupNorm(nn.Module):
 
 class BatchNorm(nn.Module):
     """Inference BatchNorm with running statistics, computed like flax's
-    (f32 ``(x - mean) * rsqrt(var + eps) * scale + bias``, cast back)."""
+    (f32 ``(x - mean) * rsqrt(var + eps) * scale + bias``, cast back).
+    ``use_scale=False`` has no scale (``weight`` is None)."""
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    def __init__(self, channels: int, eps: float = 1e-3,
+                 use_scale: bool = True):
         super().__init__()
         self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
+        self.weight = (nn.Parameter(torch.ones(channels)) if use_scale
+                       else None)
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer('running_mean', torch.zeros(channels))
         self.register_buffer('running_var', torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        mul = torch.rsqrt(self.running_var + self.eps)
+        if self.weight is not None:
+            mul = mul * self.weight
         y = ((x.float() - self.running_mean.view(shape)) * mul.view(shape)
              + self.bias.view(shape))
         return y.to(x.dtype)
+
+
+class SqueezeExcite(nn.Module):
+    """Channel attention (``masklab_tpu/nn/layers.py:244-261``): the
+    spatial mean of each map -> bias-free Dense to ``int(c // ratio)`` ->
+    relu -> bias-free Dense to c -> sigmoid, which scales the channels."""
+
+    def __init__(self, channels: int, ratio: float = 16.0,
+                 dtype=torch.float32):
+        super().__init__()
+        hidden = int(channels // ratio)
+        self.Dense_0 = nn.Linear(channels, hidden, bias=False, dtype=dtype)
+        self.Dense_1 = nn.Linear(hidden, channels, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        se = torch.relu(self.Dense_0(x.mean((-2, -1))))
+        se = torch.sigmoid(self.Dense_1(se))
+        return x * se[:, :, None, None]
 
 
 class AtrousSeparableConv(nn.Module):
@@ -126,23 +162,32 @@ class AtrousSeparableConv(nn.Module):
 
 
 class HeadBlock(nn.Module):
-    """``num_depth`` x [Conv3x3 -> ReLU -> GroupNorm], the shared body of
-    the cls/loc, mask and segmentation heads. The relu rides inside the
-    GroupNorm (K1's fuse_relu on ragged maps)."""
+    """``num_depth`` x [SqueezeExcite? -> Conv3x3 -> ReLU -> GroupNorm],
+    the shared body of the cls/loc, mask and segmentation heads. The relu
+    rides inside the GroupNorm (K1's fuse_relu on ragged maps). Each
+    SqueezeExcite pools its own sample, so in the mask heads each RoI crop
+    alone."""
 
     def __init__(self, in_ch: int, num_depth: int = 4,
                  num_features: int = 256, groups: int = 16,
-                 dtype=torch.float32):
+                 dtype=torch.float32, use_squeeze_excite: bool = False,
+                 squeeze_ratio: float = 16.0):
         super().__init__()
         self.num_depth = num_depth
+        self.use_squeeze_excite = use_squeeze_excite
         for i in range(num_depth):
-            self.add_module(f'Conv_{i}', same_conv(
-                in_ch if i == 0 else num_features, num_features, 3,
-                dtype=dtype))
+            ch = in_ch if i == 0 else num_features
+            if use_squeeze_excite:
+                self.add_module(f'SqueezeExcite_{i}', SqueezeExcite(
+                    ch, squeeze_ratio, dtype))
+            self.add_module(f'Conv_{i}', same_conv(ch, num_features, 3,
+                                                   dtype=dtype))
             self.add_module(f'GroupNorm_{i}', GroupNorm(num_features, groups))
 
     def forward(self, x):
         for i in range(self.num_depth):
+            if self.use_squeeze_excite:
+                x = getattr(self, f'SqueezeExcite_{i}')(x)
             x = getattr(self, f'Conv_{i}')(x)
             x = getattr(self, f'GroupNorm_{i}')(x, fuse_relu=True)
         return x

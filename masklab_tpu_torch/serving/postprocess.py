@@ -8,16 +8,19 @@ Port of ``masklab_tpu/serving/postprocess.py:31-135``:
     align-corners-resized and thresholded;
   * ``crop_and_pad_masks``: each RoI mask resized into its box and pasted
     into the full frame, as two per-box interpolation matrices; when the
-    best confidence of an image is above 50 only boxes >= 50 are pasted.
+    best confidence of an image is above 50 only boxes >= 50 are pasted;
+  * ``paste_stats_and_union`` (``:138-200``): the reductions of that paste
+    which the analytics and the instance overlay read, in one pass.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
 from ..ops.morphology import semantic_smoothing
 from ..ops.resize import resize_bilinear
+from .visualize import class_one_hot
 
 
 def smooth_semantics(seg_pred: torch.Tensor, kernel_sizes: Sequence[int],
@@ -96,3 +99,53 @@ def crop_and_pad_masks(det_boxes: torch.Tensor, roi_masks: torch.Tensor,
     rows = torch.einsum('bkym,bkmn->bkyn', wy, roi_masks.float())
     full = torch.einsum('bkxn,bkyn->bkyx', wx, rows)          # [B, K, H, W]
     return full * keep[..., None, None]
+
+
+def paste_stats_and_union(det_boxes: torch.Tensor, roi_masks: torch.Tensor,
+                          image_hw: Tuple[int, int], unit: torch.Tensor,
+                          my_road: torch.Tensor, num_classes: int,
+                          conf_threshold: float = 50.0) -> Dict:
+    """The statistics of the full-frame mask paste the analytics and the
+    instance overlay read, without handing the pasted [B, K, H, W] tensor
+    to more than one consumer.
+
+    The paste is separable (full = wy @ mask @ wx^T), so the linear
+    statistics (pixel count, size, horizontal extent) contract through the
+    small [K, mh] / [K, mw] axes; the thresholded ones (vertical extent,
+    my_road overlap, area, class union) come from one pass over the pasted
+    tensor, batched over the images.
+
+    det_boxes [B, K, 6] upsampled rows (conf x100); roi_masks [B, K, mh, mw]
+    (0/1); unit [B, H] metres per pixel of each row; my_road [B, H, W] bool
+    -> dict of pixel / size / horiz / vert / inter / area [B, K] and union
+    [B, H, W, num_classes] float 0/1, the values of reducing
+    ``crop_and_pad_masks``' output."""
+    h, w = image_hw
+    mh, mw = roi_masks.shape[-2], roi_masks.shape[-1]
+    y1, y2, x1, x2, keep = _paste_edges(det_boxes, image_hw, conf_threshold)
+    onehot = class_one_hot(det_boxes[..., 4].to(torch.int64),
+                           num_classes) * keep[..., None]
+    wy = _paste_weights(y1, y2, h, mh)                        # [B, K, H, mh]
+    wx = _paste_weights(x1, x2, w, mw)                        # [B, K, W, mw]
+    m = roi_masks.float()
+    # linear statistics through the mask axes
+    sy = wy.sum(2)                                            # [B, K, mh]
+    sx = wx.sum(2)                                            # [B, K, mw]
+    u1y = torch.einsum('by,bkym->bkm', unit, wy)
+    u2y = torch.einsum('by,bkym->bkm', unit * unit, wy)
+    msx = torch.einsum('bkmn,bkn->bkm', m, sx)
+    pixel = keep * torch.einsum('bkm,bkm->bk', sy, msx)
+    size = keep * torch.einsum('bkm,bkm->bk', u2y, msx)
+    rowvec = torch.einsum('bkm,bkmn->bkn', u1y, m)            # [B, K, mw]
+    colw = torch.einsum('bkxn,bkn->bkx', wx, rowvec)          # [B, K, W]
+    horiz = keep * colw.max(-1).values
+    # thresholded statistics: one pass over the pasted tensor
+    rows = torch.einsum('bkym,bkmn->bkyn', wy, m)
+    full = torch.einsum('bkxn,bkyn->bkyx', wx, rows)          # [B, K, H, W]
+    th = (full * keep[..., None, None]) > 0.5
+    vert = (unit[:, None, :] * th.any(-1)).sum(-1)
+    inter = (my_road[:, None] & th).float().sum((2, 3))
+    area = th.float().sum((2, 3))
+    union = torch.einsum('bkhw,bkc->bhwc', th.float(), onehot)
+    return dict(pixel=pixel, size=size, horiz=horiz, vert=vert, inter=inter,
+                area=area, union=(union > 0.5).float())

@@ -10,8 +10,11 @@ port's submodules carry the flax module names, so a torch module at
   * the mask head's ``upsample`` kernel [2, 2, C_in, F] -> the transposed
     conv's [C_in, F, 2, 2], flipped in both spatial axes (the reference
     applies ``kernel[::-1, ::-1]``);
+  * Dense kernel [in, out] -> the linear layer's [out, in] weight (the
+    squeeze-excite layers);
   * BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
-    running_mean/running_var; GroupNorm scale/bias as they are.
+    running_mean/running_var (no scale where the BatchNorm has none);
+    GroupNorm scale/bias as they are.
 
 Any flax leaf left unused, or torch parameter left unfilled, raises.
 This module never imports JAX.
@@ -27,9 +30,10 @@ from torch import nn
 
 from .models.detection import BoxRegressionSubNet, ClassificationSubNet
 from .models.instance import LevelMaskHead, PixelShuffleUp
-from .nn.layers import BatchNorm, GroupNorm, HeadBlock
+from .nn.layers import BatchNorm, GroupNorm, HeadBlock, SqueezeExcite
 
-_LEAF_TYPES = (nn.Conv2d, nn.ConvTranspose2d, GroupNorm, BatchNorm)
+_LEAF_TYPES = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, GroupNorm,
+               BatchNorm)
 # focal-loss prior bias of the class outputs, -log((1 - .01) / .01)
 PRIOR_BIAS = -float(np.log((1 - 0.01) / 0.01))
 
@@ -60,12 +64,17 @@ def _module_leaves(module: nn.Module, params: Dict, stats: Dict):
     elif isinstance(module, nn.Conv2d):
         out = {'weight': np.ascontiguousarray(
             take(params, 'kernel').transpose(3, 2, 0, 1))}
+    elif isinstance(module, nn.Linear):
+        out = {'weight': np.ascontiguousarray(take(params, 'kernel').T)}
     elif isinstance(module, GroupNorm):
         return {'weight': take(params, 'scale'), 'bias': take(params, 'bias')}
     else:   # BatchNorm
-        return {'weight': take(params, 'scale'), 'bias': take(params, 'bias'),
-                'running_mean': take(stats, 'mean'),
-                'running_var': take(stats, 'var')}
+        out = {'bias': take(params, 'bias'),
+               'running_mean': take(stats, 'mean'),
+               'running_var': take(stats, 'var')}
+        if module.weight is not None:
+            out['weight'] = take(params, 'scale')
+        return out
     if module.bias is not None:
         out['bias'] = take(params, 'bias')
     return out
@@ -126,38 +135,61 @@ def _small_init_convs(model: nn.Module) -> set:
     return small
 
 
+def _variance_scaling(shape, scale: float, fan: int, gen) -> torch.Tensor:
+    """flax's truncated-normal variance scaling: std sqrt(scale / fan),
+    truncated at 2 sigma and rescaled."""
+    w = torch.empty(shape, dtype=torch.float32)
+    std = math.sqrt(scale / fan) / .87962566103423978
+    return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                 generator=gen)
+
+
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights after the reference's initializers:
-    truncated-normal lecun init for convs (flax's default), normal(0.01)
-    for the head convs, the focal prior bias -log(99) on the class outputs,
-    unit scales and zero biases for the norms. Drawn on the CPU from one
-    ``torch.Generator``, so a seed gives the same model on any device."""
+    truncated-normal lecun init for convs and Dense layers (flax's
+    default), normal(0.01) for the head convs, he / glorot normal for the
+    heads' squeeze-excite layers, the focal prior bias -log(99) on the
+    class outputs, unit scales and zero biases for the norms. Drawn on the
+    CPU from one ``torch.Generator``, so a seed gives the same model on any
+    device."""
     gen = torch.Generator().manual_seed(seed)
     small = _small_init_convs(model)
     cls_outputs = set()
+    se_scaling = {}          # Dense layer -> (scale, fan) of its init
     for m in model.modules():
         if isinstance(m, ClassificationSubNet):
             cls_outputs.update(getattr(m, f'output_{i}')
                                for i in range(m.num_blocks))
+        elif isinstance(m, SqueezeExcite):
+            # he normal, then glorot normal (fan_avg: scale 2 over the sum)
+            d0, d1 = m.Dense_0, m.Dense_1
+            se_scaling[d0] = (2.0, d0.in_features)
+            se_scaling[d1] = (2.0, d1.in_features + d1.out_features)
     with torch.no_grad():
         for module in model.modules():
             if isinstance(module, (nn.Conv2d, nn.ConvTranspose2d)):
-                w = torch.empty(module.weight.shape, dtype=torch.float32)
                 if module in small:
+                    w = torch.empty(module.weight.shape, dtype=torch.float32)
                     nn.init.normal_(w, 0.0, 0.01, generator=gen)
                 else:
                     fan_in = (module.in_channels // module.groups
                               * math.prod(module.kernel_size))
-                    # flax lecun_normal: truncated at 2 sigma, rescaled
-                    std = math.sqrt(1.0 / fan_in) / .87962566103423978
-                    nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                          generator=gen)
+                    w = _variance_scaling(module.weight.shape, 1.0, fan_in,
+                                          gen)
                 module.weight.copy_(w)
                 if module.bias is not None:
                     module.bias.fill_(PRIOR_BIAS if module in cls_outputs
                                       else 0.0)
+            elif isinstance(module, nn.Linear):
+                scale, fan = se_scaling.get(module,
+                                            (1.0, module.in_features))
+                module.weight.copy_(_variance_scaling(
+                    module.weight.shape, scale, fan, gen))
+                if module.bias is not None:
+                    module.bias.fill_(0.0)
             elif isinstance(module, (GroupNorm, BatchNorm)):
-                module.weight.fill_(1.0)
+                if module.weight is not None:
+                    module.weight.fill_(1.0)
                 module.bias.fill_(0.0)
                 if isinstance(module, BatchNorm):
                     module.running_mean.fill_(0.0)

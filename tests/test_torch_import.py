@@ -25,7 +25,8 @@ def _port_sources():
 
 def test_import_leaves_jax_unloaded():
     # a subprocess: this test process already imported jax (conftest)
-    code = ("import masklab_tpu_torch, masklab_tpu_torch.serving, sys; "
+    code = ("import masklab_tpu_torch, masklab_tpu_torch.serving, "
+            "masklab_tpu_torch.presets, sys; "
             "assert 'jax' not in sys.modules and 'flax' not in sys.modules, "
             "sorted(m for m in sys.modules if m.startswith(('jax', 'flax')))")
     subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
@@ -67,12 +68,33 @@ def test_predictor_raises_without_card(monkeypatch):
 
 
 def test_predictor_refuses_unported_modes():
+    """Every output mode is served; multi-card serving (``mesh=``) is not
+    ported and raises rather than serving on one card."""
     cfg = mt.ModelConfiguration()
     cfg.backbone.backbone_type = 'mobilenet'
-    predictor = mt.MaskLabPredictor(mt.build_masklab(cfg, device='cpu'),
-                                    device='cpu')
-    with pytest.raises(NotImplementedError):
-        predictor.predict(np.zeros((64, 64, 3), np.uint8), mode='visualize')
+    model = mt.build_masklab(cfg, device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        mt.MaskLabPredictor(model, mesh=object(), device='cpu')
+
+
+@pytest.mark.parametrize('group', ['detection', 'instance', 'semantic'])
+def test_separable_heads_raise(group):
+    cfg = mt.road_project_config()
+    getattr(cfg, group).use_separable_conv = True
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        mt.MaskLab(cfg)
+
+
+def test_server_refuses_watch_dir(tmp_path):
+    """Checkpoint hot-reload waits for the trainer runtime: the server
+    raises before it binds a port."""
+    from masklab_tpu_torch.serving import MaskLabServer
+
+    class NoPredictor:
+        def predict(self, images, mode=None):
+            raise AssertionError('not called')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        MaskLabServer(NoPredictor(), port=0, watch_dir=str(tmp_path))
 
 
 def test_unported_backbone_raises():
