@@ -57,7 +57,8 @@ true, "device": {...}}``. It needs a CUDA card, the repo, and cv2 and grpc
 for the servers.
 
 ``--kernels-only`` runs phases 1-3 at the main path's shapes alone (no
-edge cases, no split of K3): copied into another tree of the repo that
+edge cases, no split of K3; K1's backward also at K1B_TRAIN_MAPS, the
+maps a train step gave it): copied into another tree of the repo that
 has ``segment_topk_rows``, it times that tree's kernels the same way, for
 comparing two trees in one call. ``--serve-only`` runs phases 1, 2 and the
 two deployments' serve paths (phase 5 without the headline's extras), for
@@ -66,6 +67,7 @@ comparing the serve paths of two trees the same way.
 import argparse
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -115,6 +117,20 @@ K1B_PARAM_RTOL = 1e-4
 K1B_MAIN = (432, 196, 128, 16)
 K1B_SHAPES = ([K1B_MAIN, (4, 4, 128, 16), (4, 16, 128, 32)]
               + [(n, q, c, 16) for n, q, c in K1_EDGES])
+# The maps one train step (train_path, seeded) gives K1's backward on the
+# card, as k1_backward_shapes records them (two mask-head levels, the P7
+# heads' 2x2 maps, the P6 norm), times their calls a step: --kernels-only
+# and the gpu tests time these, and train_path holds them against what it
+# records (check_train_maps)
+K1B_TRAIN_MAPS = ([[144, 196, 128, 16, 'bfloat16', True]] * 4
+                  + [[92, 196, 128, 16, 'bfloat16', True]] * 4
+                  + [[4, 4, 128, 16, 'bfloat16', True]] * 8
+                  + [[4, 16, 128, 32, 'bfloat16', False]])
+# check_train_maps: a recorded map's sample count within this share of
+# K1B_TRAIN_MAPS's (a mask-head level's RoIs follow the proposals over the
+# loss NMS's floor, and the card's step is not bit-reproducible: gather's
+# backward adds with float atomics)
+K1B_TRAIN_N_RTOL = 0.1
 TRAIN_BATCH, TRAIN_SIZE, TRAIN_WARMUP, TRAIN_STEPS = 4, 256, 3, 20
 # check_train_reference: each tensor of the card's float32 step within
 # TRAIN_REF_RATIO x the CPU float32 step's own distance from the float64
@@ -170,13 +186,14 @@ def traced(body, ok, what: str, host: bool = False):
     raise AssertionError(f'profiler saw no {what} in {PROFILE_TRIES} traces')
 
 
-def device_ms(fn, iters: int, symbol=None, exclude=()) -> float:
-    """Mean device time per call of ``fn``: for each device kernel whose
-    symbol contains ``symbol`` (every kernel when None) and is not in
-    ``exclude``, its mean duration in ``torch.profiler``'s ``key_averages``
-    over ``iters`` calls times its launches per call. Means, not totals
-    over ``iters``, because the tracer may drop a kernel's record now and
-    then."""
+def device_split(fn, iters: int, symbol=None, exclude=()) -> dict:
+    """Each device kernel of ``fn`` whose symbol contains ``symbol`` (every
+    kernel when None) and is not in ``exclude``, by its short name: its
+    launches per call and its device ms per call, the mean duration in
+    ``torch.profiler``'s ``key_averages`` over ``iters`` calls times its
+    launches per call. Means, not totals over ``iters``, because the
+    tracer may drop a kernel's record now and then. The symbols that share
+    a short name (template instances of one kernel) add up under it."""
     cuda = torch.autograd.DeviceType.CUDA
 
     def hits(prof):
@@ -193,8 +210,33 @@ def device_ms(fn, iters: int, symbol=None, exclude=()) -> float:
     torch.cuda.synchronize()
     prof, _ = traced(body, lambda p: bool(hits(p)),
                      f'kernel matching {symbol!r}')
-    return sum(e.device_time_total / e.count * max(1, round(e.count / iters))
-               for e in hits(prof)) / 1e3
+    split = {}
+    for e in hits(prof):
+        m = re.search(r'(\w+)(?:<|\(|$)', e.key)
+        name = m.group(1) if m else e.key
+        per_call = max(1, round(e.count / iters))
+        k = split.setdefault(name, dict(launches_per_call=0, ms=0.0))
+        k['launches_per_call'] += per_call
+        k['ms'] += e.device_time_total / e.count * per_call / 1e3
+    return split
+
+
+def device_ms(fn, iters: int, symbol=None, exclude=()) -> float:
+    """Mean device time per call of ``fn``: the sum of ``device_split``'s
+    kernels."""
+    return sum(k['ms'] for k in device_split(fn, iters, symbol,
+                                             exclude).values())
+
+
+def backward_timing(fn, iters: int) -> dict:
+    """K1's backward timed by every device kernel its call launches:
+    ``device_ms``, their sum; ``kernels_per_call``; ``by_kernel``, each
+    kernel's own device ms per call."""
+    split = device_split(fn, iters)
+    return dict(device_ms=sum(k['ms'] for k in split.values()),
+                kernels_per_call=sum(k['launches_per_call']
+                                     for k in split.values()),
+                by_kernel={n: k['ms'] for n, k in split.items()})
 
 
 def max_sm_clock_hz() -> float:
@@ -375,8 +417,10 @@ def check_k1_backward(kc, rng, edges: bool):
     version, and as yardstick aten's ``native_group_norm_backward`` over
     the [N, Q*C] view with G groups (per-element weights: the bands and
     their periodic affine), whose outputs are a superset of K1's. The
-    bound: read x and dy, write dx once (this design reads the band twice;
-    the second read is meant to hit L1/L2)."""
+    device time is split by kernel (``backward_timing``: each kernel's own
+    ms and the kernels per call). The bound: read x and dy and write dx
+    once, as the warp path does (the band stays in registers between its
+    two passes)."""
     n, q, c, g = K1B_MAIN
     cases, bad = [], []
     for n_, q_, c_, g_ in (K1B_SHAPES if edges else [K1B_MAIN]):
@@ -425,7 +469,11 @@ def check_k1_backward(kc, rng, edges: bool):
 
     nbytes = 3 * xb.numel() * xb.element_size() + 3 * 4 * c
     b_ms, b_by = bound_ms(nbytes, 20 * xb.numel())
-    dev_ms = device_ms(kernel, 200, 'band_groupnorm_bwd')
+    timing = backward_timing(kernel, 200)
+    dev_ms = timing.pop('device_ms')
+    print(f'kernel band_groupnorm_backward at {list(K1B_MAIN)}: device '
+          f'{dev_ms:.4f} ms in {timing["kernels_per_call"]} kernel(s) a '
+          f'call, by kernel {json.dumps(timing["by_kernel"])}', flush=True)
     return dict(name='band_groupnorm_backward', route='cuda',
                 source='masklab_tpu_torch/csrc/band_groupnorm.cu',
                 replaces='masklab_tpu/ops/pallas/groupnorm_kernel.py:208',
@@ -440,7 +488,8 @@ def check_k1_backward(kc, rng, edges: bool):
                     xb, dyb, scale, g, fuse_relu=True), 20),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=device_ms(library, 200),
-                library_call_ms=time_ms(library, 200), cases=len(cases))
+                library_call_ms=time_ms(library, 200), cases=len(cases),
+                **timing)
 
 
 def k1_backward_shapes(step, state, batch) -> list:
@@ -461,10 +510,26 @@ def k1_backward_shapes(step, state, batch) -> list:
     return seen
 
 
+def check_train_maps(shapes):
+    """K1B_TRAIN_MAPS against the maps ``k1_backward_shapes`` recorded: the
+    same maps as a multiset (calls a step, Q, C, groups, dtype, relu), each
+    sample count within K1B_TRAIN_N_RTOL. A stale copy fails here instead
+    of leaving --kernels-only and the gpu tests on maps the train step no
+    longer sends."""
+    got, want = sorted(map(tuple, shapes)), sorted(map(tuple, K1B_TRAIN_MAPS))
+    if not (len(got) == len(want) and all(
+            a[1:] == b[1:] and abs(a[0] - b[0]) <= K1B_TRAIN_N_RTOL * b[0]
+            for a, b in zip(got, want))):
+        raise AssertionError(f'K1B_TRAIN_MAPS {want} is not what a train '
+                             f'step gives K1\'s backward: {got}')
+
+
 def k1_backward_at(kc, rng, shapes) -> list:
     """K1's backward at each distinct map of ``k1_backward_shapes``: held
-    against its plain version (K1B_*) and timed (its own device time, both
-    kernels), with the bound and the count of launches per step."""
+    against its plain version (K1B_*), two calls giving the same bits, and
+    timed (``backward_timing``: its device time, split by kernel, and the
+    kernels a call launches, which must be one), with the bound and the
+    count of calls per step."""
     out = []
     for key in sorted({tuple(sh) for sh in shapes}):
         n, q, c, g, dtype, relu = key
@@ -480,15 +545,23 @@ def k1_backward_at(kc, rng, shapes) -> list:
         if not (dx_err <= limit and p_err <= K1B_PARAM_RTOL):
             raise AssertionError(f'band_groupnorm_backward at train map '
                                  f'{key}: dx {dx_err}, params {p_err}')
+
+        def call():
+            return kc.band_groupnorm_backward(x, dy, scale, g, fuse_relu=relu)
+        if not all(torch.equal(a, b) for a, b in zip(call(), call())):
+            raise AssertionError(f'band_groupnorm_backward at train map '
+                                 f'{key}: two calls differ')
+        timing = backward_timing(call, 100)
+        if DEVICE == 'cuda' and timing['kernels_per_call'] != 1:
+            raise AssertionError(f'band_groupnorm_backward at train map '
+                                 f'{key}: {timing}')
         b_ms, b_by = bound_ms(3 * x.numel() * x.element_size() + 12 * c,
                               20 * x.numel())
         out.append(dict(
             shape=[n, q, c], groups=g, dtype=dtype, relu=relu,
             per_step=sum(tuple(sh) == key for sh in shapes),
             dx_err=dx_err, param_err=p_err, bound_ms=b_ms, bound_by=b_by,
-            device_ms=device_ms(lambda: kc.band_groupnorm_backward(
-                x, dy, scale, g, fuse_relu=relu), 100,
-                'band_groupnorm_bwd')))
+            **timing))
     return out
 
 
@@ -1021,6 +1094,7 @@ def train_path(mt, kc):
     totals = {k: sum(c[k] for c in counts) for k in counts[0]}
     profile = stage_profile(lambda: step(state, batch))
     k1b_shapes = k1_backward_shapes(step, state, batch)
+    check_train_maps(k1b_shapes)
     with_metrics = train.make_train_step(model, with_metrics=True)
     _, metrics = with_metrics(state, batch)
     metrics = {k: v.item() for k, v in metrics.items()}
@@ -1405,6 +1479,9 @@ def main() -> int:
           f'{k2["road_device_ms"]:.5f} (bound {k2["road_bound_ms"]:.5f})',
           flush=True)
     if args.kernels_only:
+        kernels[1]['train_maps'] = k1_backward_at(kc, rng, K1B_TRAIN_MAPS)
+        print(f'kernel band_groupnorm_backward at the train maps: '
+              f'{json.dumps(kernels[1]["train_maps"])}', flush=True)
         finish(card, {'kernels': kernels})
         return 0
 

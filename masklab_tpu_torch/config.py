@@ -3,7 +3,8 @@
 A field-for-field copy of ``masklab_tpu/config.py``, kept here so that the
 PyTorch port imports nothing of the JAX package. Configurations saved by
 either package load in the other. The ``compute`` group's TPU knobs
-(capacity ladder, remat, fused head) are accepted and ignored by the port.
+(capacity ladder, remat) are accepted and ignored by the port; the fused
+mask head, which changes the model, raises where the reference builds it.
 
 Re-design of the reference's ``ModelConfiguration``
 (the reference engine/config.py:10-248): eight nested attribute groups with
@@ -212,7 +213,8 @@ class ComputeConfig:
     # fused mask head, capacity-bucketed mask compaction). They are kept so
     # that configurations round-trip between the packages; the port reads
     # none of them (its mask branch always runs each level's head on
-    # exactly that level's boxes).
+    # exactly that level's boxes), except that MaskLab refuses
+    # fused_mask_head where the reference would build FusedMaskSubNet.
     mesh_data: int = 1
     mesh_model: int = 1
     remat_backbone: bool = False

@@ -203,24 +203,35 @@ band_groupnorm_warp_kernel(const T* __restrict__ x,
   }
 }
 
+// Blocks of `kernel` (kWarpThreads threads, no dynamic shared memory)
+// resident at once on the current device. `per_sm`, the caller's cache of
+// the occupancy calculator's blocks per SM, is filled on the first call.
+template <class K>
+cudaError_t resident_blocks(K kernel, int& per_sm, long long* blocks) {
+  cudaError_t e = cudaSuccess;
+  if (per_sm == 0)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kWarpThreads, 0);
+  int device = 0, sms = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  *blocks = (long long)sms * per_sm;
+  return e;
+}
+
 template <typename T, bool kRelu, int NV>
 cudaError_t launch_warp(const void* x, const void* scale, const void* bias,
                         void* y, int bands, int length, int groups, int cg,
                         float eps, cudaStream_t stream) {
-  static int per_sm = 0;   // resident blocks per SM, from the occupancy calculator
-  if (per_sm == 0) {
-    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, band_groupnorm_warp_kernel<T, kRelu, NV>, kWarpThreads, 0);
-    if (e != cudaSuccess) return e;
-  }
-  int device = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&device);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  static int per_sm = 0;
+  long long resident = 0;
+  const cudaError_t e = resident_blocks(
+      band_groupnorm_warp_kernel<T, kRelu, NV>, per_sm, &resident);
   if (e != cudaSuccess) return e;
   const int warps = kWarpThreads / 32;
   const long long needed = ((long long)bands + warps - 1) / warps;
-  const int grid = (int)(needed < (long long)sms * per_sm ? needed : (long long)sms * per_sm);
+  const int grid = (int)(needed < resident ? needed : resident);
   band_groupnorm_warp_kernel<T, kRelu, NV><<<grid, kWarpThreads, 0, stream>>>(
       (const T*)x, (const float*)scale, (const float*)bias, (T*)y, bands,
       length, groups, cg, eps);
@@ -336,50 +347,63 @@ cudaError_t launch(const void* x, const void* scale, const void* bias, void* y,
 // [432, 196, 128] bf16 the op must read x and dy and write dx: 65 MB /
 // 3.35 TB/s = 19 us; ~20 f32 operations per element are ~3 us.
 //
-// Design: one pass over each band computes sum f, sum f^2, sum g and
+// Both paths: one pass over each band computes sum f, sum f^2, sum g and
 // sum g*f, from which sum g*x^ = inv * (sum g*f - m1 * sum g); a second
-// pass writes dx and keeps dy*x^ and dy per phase. Each band's [cg] partial
-// sums go to scratch, and a second small kernel adds them over the N
-// samples in a fixed order. No float atomics anywhere, so every run gives
-// the same bits.
+// pass writes dx and keeps dy*x^ and dy per phase. No float atomics
+// anywhere, and every sum is taken in an order fixed by the shapes and the
+// card, so every run gives the same bits.
 // - Warp path (the forward's conditions: the band is whole 16-byte vectors,
 //   aligned, cg a power of two dividing 32 vectors' worth of elements, and
-//   at most 8 vectors per lane: the mask heads' maps): one warp per band.
-//   Each lane loads its vectors of x and dy once into registers, the four
-//   sums reduce with warp shuffles, dx is computed from the same registers
-//   (one read of each input byte, one write of dx), and element k of every
-//   vector a lane holds has phase (V*lane + k) % cg, so the per-phase
-//   partials fold within the lane and then across the lanes that share
-//   phases, by shuffles in a fixed order. Every map the train path sends
-//   to the backward takes this path.
+//   at most 8 vectors per lane; every map the train path sends to the
+//   backward): ONE launch per call, persistent, as the forward's warp path.
+//   - Grid: blocks per group R from the occupancy calculator (the resident
+//     blocks over G, at most one warp per sample), R * G blocks. Block b
+//     serves group g = b % G; its 8 warps walk samples (b / G) * 8 + w,
+//     stepping by 8R, so a warp meets one group only and keeps its phase
+//     partials (dy*x^ and dy per element slot) in registers for its whole
+//     walk.
+//   - Overlap: two register buffers of x and dy in ping-pong, as in the
+//     forward: the next band's loads are in flight before the current band
+//     is reduced and written, so each warp keeps up to two bands (12.5 KB
+//     at the main shape) in flight. This costs ~210 registers (bf16), so
+//     one block of 8 warps per SM. A ring of two shared-memory stages per
+//     warp filled by 1-D bulk copies (TMA, an mbarrier per stage) fits in
+//     128 registers and 2 blocks per SM, but timed against this design in
+//     one run it was 2-3% faster at [432, 196, 128] and 4-8% slower at the
+//     smaller maps a train step sends (the barrier's setup and the copy's
+//     start lie on the path of a walk of one or two bands): slower per
+//     train step in sum, so registers, as in the forward.
+//   - Each lane loads its vectors of x and dy once, the four sums reduce
+//     with warp shuffles, dx is computed from the same registers (one read
+//     of each input byte, one write of dx), and element k of every vector
+//     a lane holds has phase (V*lane + k) % cg.
+//   - Reduction over N, in the same launch: at the end of the walk each
+//     warp folds its partials within the lane and across the lanes that
+//     share phases (shuffles in a fixed order), the block adds its 8 warps
+//     in order in shared memory and writes one row of cg pairs: 2 * R * C
+//     floats of scratch (R = 8 on the H100 at 1 block per SM and G = 16,
+//     where partials per band would take 2 * N * C).
+//     Each block then takes a ticket (an integer atomic after a
+//     __threadfence); the last block adds the R rows of every channel in
+//     row order and resets the ticket for the next call. With R = 1 (at
+//     most 8 samples) the row is the gradient: no scratch, no ticket.
 // - Scalar path (any other map the forward takes, e.g. cg = 3 or a band
 //   too long for registers): one block per band, read as Q rows of cg
 //   elements; threads are laid out as rows x columns so that each thread
 //   keeps one column (one phase) and consecutive threads read consecutive
 //   elements; the second pass re-reads the band (from L1/L2); columns are
-//   summed over the rows in shared memory, in order.
+//   summed over the rows in shared memory, in order; each band's [cg]
+//   partials go to scratch (2 * N * C floats) and a second kernel adds them
+//   over the N samples in a fixed order.
 
 constexpr int kBwdThreads = 256;
+constexpr int kBwdWarps = kWarpThreads / 32;  // warp path: warps per block
+constexpr int kBwdLaneVectors = 8;   // warp path: vectors a lane holds at most
+constexpr int kMaxPhases = 256;      // warp path: cg at most (32 x 8 bf16)
 constexpr int kReduceCols = 32;      // reduce kernel: channels per block
 constexpr int kReduceRows = 8;       // reduce kernel: sample lanes per channel
 
-__device__ __forceinline__ float4 block_sum4(float a, float b, float c, float d) {
-  __shared__ float s[4][kBwdThreads / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
-    c += __shfl_xor_sync(0xffffffffu, c, o);
-    d += __shfl_xor_sync(0xffffffffu, d, o);
-  }
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) { s[0][warp] = a; s[1][warp] = b; s[2][warp] = c; s[3][warp] = d; }
-  __syncthreads();
-  // every warp reduces the warp sums in the same order: all threads agree
-  a = lane < kBwdThreads / 32 ? s[0][lane] : 0.f;
-  b = lane < kBwdThreads / 32 ? s[1][lane] : 0.f;
-  c = lane < kBwdThreads / 32 ? s[2][lane] : 0.f;
-  d = lane < kBwdThreads / 32 ? s[3][lane] : 0.f;
+__device__ __forceinline__ float4 warp_sum4(float a, float b, float c, float d) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
     a += __shfl_xor_sync(0xffffffffu, a, o);
@@ -388,6 +412,19 @@ __device__ __forceinline__ float4 block_sum4(float a, float b, float c, float d)
     d += __shfl_xor_sync(0xffffffffu, d, o);
   }
   return make_float4(a, b, c, d);
+}
+
+__device__ __forceinline__ float4 block_sum4(float a, float b, float c, float d) {
+  __shared__ float s[4][kBwdThreads / 32];
+  const float4 w = warp_sum4(a, b, c, d);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (lane == 0) { s[0][warp] = w.x; s[1][warp] = w.y; s[2][warp] = w.z; s[3][warp] = w.w; }
+  __syncthreads();
+  // every warp reduces the warp sums in the same order: all threads agree
+  return warp_sum4(lane < kBwdThreads / 32 ? s[0][lane] : 0.f,
+                   lane < kBwdThreads / 32 ? s[1][lane] : 0.f,
+                   lane < kBwdThreads / 32 ? s[2][lane] : 0.f,
+                   lane < kBwdThreads / 32 ? s[3][lane] : 0.f);
 }
 
 // The band's constants from its four sums.
@@ -402,34 +439,22 @@ struct BandGrad {
   }
 };
 
-template <typename T, bool kRelu>
-__global__ void __launch_bounds__(kWarpThreads)
-band_groupnorm_bwd_warp_kernel(const T* __restrict__ x,
-                               const T* __restrict__ dy,
-                               const float* __restrict__ scale,
-                               T* __restrict__ dx, float* __restrict__ part_s,
-                               float* __restrict__ part_b, int bands,
-                               int length, int groups, int cg, float eps) {
+// One band of the warp path from registers: dx written, the band's dy * x^
+// and dy added to the lane's per-slot partials.
+template <typename T, bool kRelu, int NV>
+__device__ __forceinline__ void grad_band(
+    const uint4 (&xr)[NV], const uint4 (&dr)[NV],
+    const float (&sc)[Vec<T>::n], T* __restrict__ dx, int band, int length,
+    float eps, int lane, float (&as)[Vec<T>::n], float (&ab)[Vec<T>::n]) {
   constexpr int V = Vec<T>::n;
-  constexpr int NV = 8;                    // vectors per lane at most
-  const int lane = threadIdx.x & 31;
-  const int band = blockIdx.x * (kWarpThreads / 32) + (threadIdx.x >> 5);
-  if (band >= bands) return;               // whole warps leave together
-  const int g = band % groups, nvec = length / V;
-  uint4 xa[NV], da[NV];
-  load_band<T, NV>(x, band, length, lane, xa);
-  load_band<T, NV>(dy, band, length, lane, da);
-  float sc[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) sc[k] = scale[g * cg + ((V * lane + k) & (cg - 1))];
-
+  const int nvec = length / V;
   float s1 = 0.f, s2 = 0.f, sg = 0.f, sgf = 0.f;
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
     if (lane + 32 * t < nvec) {
       float xv[V], dv[V];
-      unpack<T>(xa[t], xv);
-      unpack<T>(da[t], dv);
+      unpack<T>(xr[t], xv);
+      unpack<T>(dr[t], dv);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         const float f = kRelu ? fmaxf(xv[k], 0.f) : xv[k];
@@ -441,21 +466,15 @@ band_groupnorm_bwd_warp_kernel(const T* __restrict__ x,
       }
     }
   }
-  const float2 a = warp_sum2(s1, s2);
-  const float2 b = warp_sum2(sg, sgf);
-  const BandGrad c(make_float4(a.x, a.y, b.x, b.y), length, eps);
-
-  float as[V], ab[V];
-#pragma unroll
-  for (int k = 0; k < V; ++k) as[k] = ab[k] = 0.f;
+  const BandGrad c(warp_sum4(s1, s2, sg, sgf), length, eps);
   uint4* ob = reinterpret_cast<uint4*>(dx + (size_t)band * length);
 #pragma unroll
   for (int t = 0; t < NV; ++t) {
     const int v = lane + 32 * t;
     if (v < nvec) {
       float xv[V], dv[V], out[V];
-      unpack<T>(xa[t], xv);
-      unpack<T>(da[t], dv);
+      unpack<T>(xr[t], xv);
+      unpack<T>(dr[t], dv);
 #pragma unroll
       for (int k = 0; k < V; ++k) {
         const float f = kRelu ? fmaxf(xv[k], 0.f) : xv[k];
@@ -468,14 +487,70 @@ band_groupnorm_bwd_warp_kernel(const T* __restrict__ x,
       ob[v] = pack<T>(out);
     }
   }
-  // fold the phases within the lane (cg < V: elements k and k + cg share a
-  // phase), then across lanes: lanes l and l' share phases when l = l' mod
-  // (cg / V), so offsets from cg / V up reduce them
+}
+
+// part: [2][rows][c] scratch (rows = gridDim.x / groups); ticket: 0 on
+// entry, left 0 on exit.
+template <typename T, bool kRelu>
+__global__ void __launch_bounds__(kWarpThreads, 1)
+band_groupnorm_bwd_warp_kernel(const T* __restrict__ x,
+                               const T* __restrict__ dy,
+                               const float* __restrict__ scale,
+                               T* __restrict__ dx, float* __restrict__ part,
+                               float* __restrict__ dscale,
+                               float* __restrict__ dbias,
+                               unsigned int* __restrict__ ticket, int n,
+                               int length, int groups, int cg, float eps) {
+  constexpr int V = Vec<T>::n;
+  constexpr int NV = kBwdLaneVectors;
+  __shared__ float red[2][kBwdWarps][kMaxPhases];
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = blockIdx.x % groups, row = blockIdx.x / groups;
+  const int rows = gridDim.x / groups;
+  const int stride = rows * kBwdWarps;     // samples a group walks at once
+  float sc[V], as[V], ab[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) {
-    if (k >= cg) {
-      as[k & (cg - 1)] += as[k];
-      ab[k & (cg - 1)] += ab[k];
+    sc[k] = scale[g * cg + ((V * lane + k) & (cg - 1))];
+    as[k] = ab[k] = 0.f;
+  }
+  // ping-pong: (xa, da) hold sample s, (xb, db) the next one, loaded before
+  // s is reduced
+  uint4 xa[NV], da[NV], xb[NV], db[NV];
+  int s = row * kBwdWarps + warp;
+  if (s < n) {
+    load_band<T, NV>(x, s * groups + g, length, lane, xa);
+    load_band<T, NV>(dy, s * groups + g, length, lane, da);
+  }
+  while (s < n) {
+    const int next = s + stride;
+    if (next < n) {
+      load_band<T, NV>(x, next * groups + g, length, lane, xb);
+      load_band<T, NV>(dy, next * groups + g, length, lane, db);
+    }
+    grad_band<T, kRelu, NV>(xa, da, sc, dx, s * groups + g, length, eps, lane, as, ab);
+    if (next >= n) break;
+    const int after = next + stride;
+    if (after < n) {
+      load_band<T, NV>(x, after * groups + g, length, lane, xa);
+      load_band<T, NV>(dy, after * groups + g, length, lane, da);
+    }
+    grad_band<T, kRelu, NV>(xb, db, sc, dx, next * groups + g, length, eps, lane, as, ab);
+    s = after;
+  }
+  // fold the phases within the lane (cg < V: elements k and k + cg share a
+  // phase) by halves, every index a constant so that the partials stay in
+  // registers; then across lanes: lanes l and l' share phases when l = l'
+  // mod (cg / V), so offsets from cg / V up reduce them
+#pragma unroll
+  for (int h = V / 2; h >= 1; h >>= 1) {
+    if (h >= cg) {
+#pragma unroll
+      for (int k = 0; k < h; ++k) {
+        as[k] += as[k + h];
+        ab[k] += ab[k + h];
+      }
     }
   }
   const int first = cg > V ? cg / V : 1;
@@ -490,11 +565,42 @@ band_groupnorm_bwd_warp_kernel(const T* __restrict__ x,
 #pragma unroll
     for (int k = 0; k < V; ++k) {
       if (k < cg) {
-        part_s[(size_t)band * cg + V * lane + k] = as[k];
-        part_b[(size_t)band * cg + V * lane + k] = ab[k];
+        red[0][warp][V * lane + k] = as[k];
+        red[1][warp][V * lane + k] = ab[k];
       }
     }
   }
+  __syncthreads();
+  // the block's row: its warps added in order; with one block per group
+  // the row is the gradient itself
+  const int c = groups * cg;
+  for (int t = threadIdx.x; t < 2 * cg; t += kWarpThreads) {
+    const int q = t / cg, j = t - q * cg;
+    float a = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) a += red[q][w][j];
+    if (rows == 1)
+      (q == 0 ? dscale : dbias)[g * cg + j] = a;
+    else
+      part[((size_t)q * rows + row) * c + g * cg + j] = a;
+  }
+  if (rows == 1) return;
+  // the last block to finish adds the rows of every channel, in row order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int u = threadIdx.x; u < 2 * c; u += kWarpThreads) {
+    const int q = u / c, ch = u - q * c;
+    const float* col = part + (size_t)q * rows * c + ch;
+    float a = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < rows; ++r) a += __ldcg(col + (size_t)r * c);
+    (q == 0 ? dscale : dbias)[ch] = a;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 template <typename T, bool kRelu>
@@ -604,28 +710,55 @@ band_groupnorm_bwd_reduce_kernel(const float* __restrict__ part_s,
   }
 }
 
+// The warp path's blocks per group: as many as are resident at once over
+// G (at least 1), and no more than the samples need.
+template <typename T, bool kRelu>
+cudaError_t bwd_rows(int n, int groups, int* rows) {
+  static int per_sm = 0;
+  long long resident = 0;
+  const cudaError_t e = resident_blocks(
+      band_groupnorm_bwd_warp_kernel<T, kRelu>, per_sm, &resident);
+  if (e != cudaSuccess) return e;
+  const long long per_group = resident / groups;
+  const long long needed = ((long long)n + kBwdWarps - 1) / kBwdWarps;
+  long long r = per_group < needed ? per_group : needed;
+  *rows = (int)(r < 1 ? 1 : r);
+  return cudaSuccess;
+}
+
 template <typename T, bool kRelu>
 cudaError_t launch_bwd(const void* x, const void* dy, const void* scale,
-                       void* dx, float* part_s, float* part_b, int n, int q,
-                       int groups, int cg, float eps, cudaStream_t stream) {
+                       void* dx, void* dscale, void* dbias, float* part,
+                       unsigned int* ticket, int n, int q, int groups, int cg,
+                       float eps, cudaStream_t stream) {
   constexpr int V = Vec<T>::n;
-  const int bands = n * groups, length = q * cg;
+  const int bands = n * groups, length = q * cg, c = groups * cg;
   const bool vec = (length % V == 0) &&
                    (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(dy) % 16 == 0) &&
                    (reinterpret_cast<uintptr_t>(dx) % 16 == 0);
   const bool pow2 = (cg & (cg - 1)) == 0;
-  if (vec && pow2 && (32 * V) % cg == 0 && (length / V + 31) / 32 <= 8) {
-    const int warps = kWarpThreads / 32;
+  if (vec && pow2 && (32 * V) % cg == 0 &&
+      (length / V + 31) / 32 <= kBwdLaneVectors) {
+    int rows = 0;
+    const cudaError_t e = bwd_rows<T, kRelu>(n, groups, &rows);
+    if (e != cudaSuccess) return e;
     band_groupnorm_bwd_warp_kernel<T, kRelu>
-        <<<(bands + warps - 1) / warps, kWarpThreads, 0, stream>>>(
-            (const T*)x, (const T*)dy, (const float*)scale, (T*)dx, part_s,
-            part_b, bands, length, groups, cg, eps);
-  } else {
-    band_groupnorm_bwd_scalar_kernel<T, kRelu><<<bands, kBwdThreads, 0, stream>>>(
-        (const T*)x, (const T*)dy, (const float*)scale, (T*)dx, part_s, part_b,
-        q, groups, cg, eps);
+        <<<rows * groups, kWarpThreads, 0, stream>>>(
+            (const T*)x, (const T*)dy, (const float*)scale, (T*)dx, part,
+            (float*)dscale, (float*)dbias, ticket, n, length, groups, cg, eps);
+    return cudaGetLastError();
   }
+  float* part_s = part;
+  float* part_b = part + (size_t)n * c;
+  band_groupnorm_bwd_scalar_kernel<T, kRelu><<<bands, kBwdThreads, 0, stream>>>(
+      (const T*)x, (const T*)dy, (const float*)scale, (T*)dx, part_s, part_b,
+      q, groups, cg, eps);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const dim3 block(kReduceCols, kReduceRows);
+  band_groupnorm_bwd_reduce_kernel<<<(c + kReduceCols - 1) / kReduceCols, block, 0, stream>>>(
+      part_s, part_b, (float*)dscale, (float*)dbias, n, c);
   return cudaGetLastError();
 }
 
@@ -660,36 +793,35 @@ extern "C" int mlk_band_groupnorm(const void* x, const void* scale,
 
 // The backward of mlk_band_groupnorm. x, dy, dx: [n, q, c] contiguous, dtype
 // 0 = float32, 1 = bfloat16; scale: [c] float32; dscale, dbias: [c] float32
-// outputs; partials: float32 scratch of 2 * n * c. Returns the first CUDA
-// error of the launches.
+// outputs; partials: float32 scratch of 2 * n * c (the warp path uses
+// 2 * R * c of it, R <= ceil(n / 8)); ticket: one unsigned int, 0 before
+// the first call, which each call leaves at 0 (calls that share a ticket
+// must not run concurrently).
+// Returns the first CUDA error of the launches.
 extern "C" int mlk_band_groupnorm_backward(const void* x, const void* dy,
                                            const void* scale, void* dx,
                                            void* dscale, void* dbias,
-                                           void* partials, int n, int q, int c,
-                                           int groups, float eps,
-                                           int fuse_relu, int dtype,
-                                           void* stream) {
+                                           void* partials, void* ticket,
+                                           int n, int q, int c, int groups,
+                                           float eps, int fuse_relu,
+                                           int dtype, void* stream) {
   const int cg = c / groups;
   cudaStream_t st = (cudaStream_t)stream;
-  float* part_s = (float*)partials;
-  float* part_b = part_s + (size_t)n * c;
+  float* part = (float*)partials;
+  unsigned int* tk = (unsigned int*)ticket;
   cudaError_t e = cudaSuccess;
   if (n > 0 && q > 0 && c > 0) {
     if (dtype == 0) {
-      e = fuse_relu ? launch_bwd<float, true>(x, dy, scale, dx, part_s, part_b, n, q, groups, cg, eps, st)
-                    : launch_bwd<float, false>(x, dy, scale, dx, part_s, part_b, n, q, groups, cg, eps, st);
+      e = fuse_relu ? launch_bwd<float, true>(x, dy, scale, dx, dscale, dbias, part, tk, n, q, groups, cg, eps, st)
+                    : launch_bwd<float, false>(x, dy, scale, dx, dscale, dbias, part, tk, n, q, groups, cg, eps, st);
     } else {
-      e = fuse_relu ? launch_bwd<__nv_bfloat16, true>(x, dy, scale, dx, part_s, part_b, n, q, groups, cg, eps, st)
-                    : launch_bwd<__nv_bfloat16, false>(x, dy, scale, dx, part_s, part_b, n, q, groups, cg, eps, st);
+      e = fuse_relu ? launch_bwd<__nv_bfloat16, true>(x, dy, scale, dx, dscale, dbias, part, tk, n, q, groups, cg, eps, st)
+                    : launch_bwd<__nv_bfloat16, false>(x, dy, scale, dx, dscale, dbias, part, tk, n, q, groups, cg, eps, st);
     }
-  } else if (n > 0 && c > 0) {
-    e = cudaMemsetAsync(partials, 0, 2 * (size_t)n * c * sizeof(float), st);
-  }
-  if (e == cudaSuccess && c > 0) {
-    const dim3 block(kReduceCols, kReduceRows);
-    band_groupnorm_bwd_reduce_kernel<<<(c + kReduceCols - 1) / kReduceCols, block, 0, st>>>(
-        part_s, part_b, (float*)dscale, (float*)dbias, n, c);
-    e = cudaGetLastError();
+  } else if (c > 0) {      // no element: the parameter gradients are 0
+    e = cudaMemsetAsync(dscale, 0, (size_t)c * sizeof(float), st);
+    if (e == cudaSuccess)
+      e = cudaMemsetAsync(dbias, 0, (size_t)c * sizeof(float), st);
   }
   return (int)e;
 }

@@ -5,7 +5,8 @@ Port of ``masklab_tpu/models/masklab.py`` (``raw_heads`` :138-164,
 :209-244): shared backbone, FPN, cls/loc heads, detection-config NMS, the
 routed mask branch and the semantic head, with squeeze-excite heads where
 the configuration asks for them (the road preset). Separable heads
-(``use_separable_conv``) are not ported yet and raise. The BatchNorm mode is
+(``use_separable_conv``) and the fused mask head (``fused_mask_head`` with
+plain instance heads) are not ported yet and raise. The BatchNorm mode is
 the module's: ``model.train()`` for the reference's ``train=True``.
 Public outputs keep the reference's layouts: NHWC images in, ``cls_pred``
 [B, N, C], ``roi_boxes`` [B, K, 6], ``roi_masks`` [B, K, 28, 28, C] and
@@ -75,6 +76,14 @@ class MaskLab(nn.Module):
                 raise NotImplementedError(
                     f'{name}.use_separable_conv heads are not ported to '
                     'PyTorch yet (ROADMAP.md, Queue 1)')
+        # the reference's condition for FusedMaskSubNet
+        # (masklab_tpu/models/masklab.py:104-106): it changes the model, so
+        # the port refuses it rather than build the per-level heads
+        if (cfg.compute.fused_mask_head and not ins.use_separable_conv
+                and not ins.use_squeeze_excite):
+            raise NotImplementedError(
+                'compute.fused_mask_head (FusedMaskSubNet) is not ported to '
+                'PyTorch yet (ROADMAP.md, Queue 1)')
         self.fpn = FeaturePyramid([channels(n) for n in self.fpn_names],
                                   det.num_features, dtype)
         feat_ch = ([det.num_features] * len(self.fpn_names)

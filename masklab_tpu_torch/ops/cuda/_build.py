@@ -41,8 +41,8 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     'mlk_band_groupnorm': [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P],
-    'mlk_band_groupnorm_backward': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                    _I, _F, _I, _I, _P],
+    'mlk_band_groupnorm_backward': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                    _I, _I, _F, _I, _I, _P],
     'mlk_segment_topk': [_P, _P, _P, _I, _I, _L, _L, _L, _I, _I, _I, _I,
                          _P],
     'mlk_nms_keep': [_P, _P, _P, _I, _I, _F, _I, _P],

@@ -14,7 +14,9 @@ import torch
 from ._build import check, library
 
 launches = 0            # forward kernel launches since the last reset
-backward_launches = 0   # backward calls since then (each: band kernel + reduce)
+backward_launches = 0   # backward calls since then (one kernel each on the
+                        # warp path; the scalar path adds a reduce kernel)
+_tickets = {}           # (device, stream) -> the backward's int32 ticket
 
 
 def band_groupnorm_plain(x: torch.Tensor, scale: torch.Tensor,
@@ -130,7 +132,12 @@ def band_groupnorm_backward(x: torch.Tensor, dy: torch.Tensor,
     """The backward of :func:`band_groupnorm` -> (dx, dscale, dbias): x and
     dy [N, Q, C] of one type (f32 or bf16, contiguous), ``scale`` f32 [C].
     CPU tensors take :func:`band_groupnorm_backward_plain`; a CUDA tensor
-    launches the kernel (a band pass and a fixed-order reduce over N)."""
+    launches the kernel: one persistent launch that also adds the
+    parameter gradients over N in a fixed order, where the map is whole
+    aligned 16-byte vectors (every map of the train path); else a band
+    pass and a fixed-order reduce over N. The warp path's ticket is one
+    zeroed integer per device and stream, kept here, which every call
+    leaves at 0."""
     global backward_launches
     if x.device.type == 'cpu':
         return band_groupnorm_backward_plain(x, dy, scale, groups, eps,
@@ -151,11 +158,15 @@ def band_groupnorm_backward(x: torch.Tensor, dy: torch.Tensor,
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        key = (x.device.index, stream)
+        if key not in _tickets:
+            _tickets[key] = torch.zeros(1, dtype=torch.int32,
+                                        device=x.device)
         status = lib.mlk_band_groupnorm_backward(
             x.data_ptr(), dy.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-            dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(), n, q, c,
-            groups, float(eps), int(fuse_relu),
-            0 if x.dtype == torch.float32 else 1, stream)
+            dscale.data_ptr(), dbias.data_ptr(), partials.data_ptr(),
+            _tickets[key].data_ptr(), n, q, c, groups, float(eps),
+            int(fuse_relu), 0 if x.dtype == torch.float32 else 1, stream)
     check(status, 'band_groupnorm_backward')
     backward_launches += 1
     return dx, dscale, dbias

@@ -90,6 +90,27 @@ def test_separable_heads_raise(group):
         mt.MaskLab(cfg)
 
 
+@pytest.mark.parametrize('preset', ['mobilenet', 'road'])
+def test_fused_mask_head_raises(preset):
+    """``compute.fused_mask_head`` changes the model where the reference
+    builds ``FusedMaskSubNet`` (the flag set, instance heads neither
+    separable nor squeeze-excite): the port raises there. The road preset's
+    squeeze-excite instance heads make the reference ignore the flag, so
+    the port builds its model."""
+    if preset == 'road':
+        cfg = mt.road_project_config()
+    else:
+        cfg = mt.ModelConfiguration()
+        cfg.backbone.backbone_type = 'mobilenet'
+    cfg.compute.fused_mask_head = True
+    if preset == 'road':
+        assert type(mt.MaskLab(cfg).mask_subnet).__name__ == 'MaskSubNet'
+    else:
+        with pytest.raises(NotImplementedError,
+                           match='fused_mask_head.*ROADMAP'):
+            mt.MaskLab(cfg)
+
+
 def test_server_refuses_watch_dir(tmp_path):
     """Checkpoint hot-reload waits for the trainer runtime: the server
     raises before it binds a port."""

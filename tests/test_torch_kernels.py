@@ -113,10 +113,20 @@ def test_band_groupnorm_kernel_matches_plain(cuda, dtype, n, q, c):
     assert kc.launch_counts()['band_groupnorm'] == before + 2
 
 
+def _k1b_inputs(cuda, n, q, c, dtype, seed=4):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2 + 1)
+    dy = torch.from_numpy(rng.randn(n, q, c).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
+    dt = getattr(torch, dtype)
+    return x.to(cuda).to(dt), dy.to(cuda).to(dt), s.to(cuda)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('n,q,c,g', [(432, 196, 128, 16), (4, 4, 128, 16),
                                      (4, 16, 128, 32), (1, 196, 128, 16),
+                                     (3, 196, 128, 16), (2000, 196, 128, 16),
                                      (7, 196, 256, 16), (7, 49, 48, 16),
                                      (7, 784, 256, 16), (3, 5, 600, 2)])
 def test_band_groupnorm_backward_kernel_matches_plain(cuda, dtype, n, q, c,
@@ -124,16 +134,15 @@ def test_band_groupnorm_backward_kernel_matches_plain(cuda, dtype, n, q, c,
     """K1's backward kernel against its plain version, relu off and on,
     within chip_smoke.py's K1B_* tolerances (f32 dx 5e-5; bf16 dx in ulps
     at operand scale 1.01; dscale / dbias 1e-4 of the sum of their terms'
-    magnitudes). The maps: the train path's mask heads, P7 heads (G > Q)
-    and P6 norm (G = 32 > Q), the forward's edges (the vector path, cg = 3
-    on the scalar path) and cg = 300 (the scalar path with columns wider than a block)."""
+    magnitudes), and two calls on the same inputs give the same bits in
+    dx, dscale and dbias (no float atomics; the ticket is back at 0 after
+    each call). The maps: the train path's mask heads, P7 heads (G > Q)
+    and P6 norm (G = 32 > Q); fewer samples than one block's warps (1, 3)
+    and many more bands than the persistent grid has warps (2000 x 16);
+    the forward's edges (the vector path, cg = 3 on the scalar path) and
+    cg = 300 (the scalar path with columns wider than a block)."""
     import chip_smoke
-    rng = np.random.RandomState(2)
-    x = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2 + 1)
-    dy = torch.from_numpy(rng.randn(n, q, c).astype(np.float32))
-    s = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32))
-    x, dy, s = (t.to(cuda) for t in (x, dy, s))
-    x, dy = x.to(getattr(torch, dtype)), dy.to(getattr(torch, dtype))
+    x, dy, s = _k1b_inputs(cuda, n, q, c, dtype, seed=2)
     before = kc.launch_counts()['band_groupnorm_backward']
     for relu in (False, True):
         dx_err, param_err = chip_smoke.k1_backward_errors(kc, x, dy, s, g,
@@ -141,7 +150,32 @@ def test_band_groupnorm_backward_kernel_matches_plain(cuda, dtype, n, q, c,
         assert dx_err <= (chip_smoke.K1B_F32_ATOL if dtype == 'float32'
                           else chip_smoke.K1B_BF16_ULPS)
         assert param_err <= chip_smoke.K1B_PARAM_RTOL
-    assert kc.launch_counts()['band_groupnorm_backward'] == before + 2
+        first = kc.band_groupnorm_backward(x, dy, s, g, fuse_relu=relu)
+        second = kc.band_groupnorm_backward(x, dy, s, g, fuse_relu=relu)
+        for a, b in zip(first, second):
+            assert torch.equal(a, b)
+    assert kc.launch_counts()['band_groupnorm_backward'] == before + 6
+
+
+def _k1b_train_maps():
+    import chip_smoke
+    return sorted({tuple(m) for m in chip_smoke.K1B_TRAIN_MAPS})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('index', range(4))
+def test_band_groupnorm_backward_one_launch_per_call(cuda, index):
+    """At every map a train step gives K1's backward
+    (chip_smoke.K1B_TRAIN_MAPS, which chip_smoke.py holds against the maps
+    its train step records), one call launches exactly one device kernel:
+    the profiler's kernels per call over 20 calls, template instances of
+    one kernel counted apart."""
+    import chip_smoke
+    n, q, c, g, dtype, relu = _k1b_train_maps()[index]
+    x, dy, s = _k1b_inputs(cuda, n, q, c, dtype)
+    timing = chip_smoke.backward_timing(
+        lambda: kc.band_groupnorm_backward(x, dy, s, g, fuse_relu=relu), 20)
+    assert timing['kernels_per_call'] == 1, timing
 
 
 @pytest.mark.gpu
