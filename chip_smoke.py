@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (masklab_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--kernels-only | --serve-only]
+    python3 chip_smoke.py [--kernels-only | --serve-only | --trainer-only]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -48,7 +48,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      K3 launched in every step), the peak memory, one traced step split by
      its ``stage:`` spans and one step with metrics (``train_path``); K1's
      backward held against its plain version and timed at the maps that
-     step gave it (``k1_backward_at``).
+     step gave it (``k1_backward_at``);
+  7. trainer: the user's training path through the CLI (``trainer_path``):
+     ``etl`` of 40 synthetic 1080x1920 road frames, ``train`` with the
+     road preset at full width (bf16, batch 8, buckets 0.4-0.6: 416x768 to
+     640x1152; smoke check, then head / waist / all of 2 steps each, each
+     epoch validated and checkpointed) and its eval, then ``eval`` again.
+     Every step's loss finite, K1, K1's backward, K2 and K3 launched in
+     it; metrics.csv, the checkpoints (best by parsed loss, the last
+     restored bit for bit into a new state) and eval.json checked; every
+     generator batch equal to its host replay from the same seed. Then
+     K1's backward at the maps a trainer step gave it and one traced step
+     (data wait, upload and the step's spans). K2 (phase 3) is also held
+     and timed at the trainer's row lengths (the road preset's anchors at
+     the 0.4 and 0.6 buckets of a 1080p frame).
 
 Then it prints the ``kernels`` JSON line (each kernel's ``launches`` from
 the headline raw path, K1's backward's from the train path,
@@ -62,9 +75,14 @@ maps a train step gave it): copied into another tree of the repo that
 has ``segment_topk_rows``, it times that tree's kernels the same way, for
 comparing two trees in one call. ``--serve-only`` runs phases 1, 2 and the
 two deployments' serve paths (phase 5 without the headline's extras), for
-comparing the serve paths of two trees the same way.
+comparing the serve paths of two trees the same way. ``--trainer-only``
+runs phases 1, 2, K2's check (without its edge cases) and phase 7.
+``--reference-draws N`` runs phases 1, 2 and phase 4's train reference at
+N fresh batch seeds, reporting each verdict (a failing draw does not fail
+the run).
 """
 import argparse
+import contextlib
 import json
 import os
 import re
@@ -184,6 +202,23 @@ def traced(body, ok, what: str, host: bool = False):
         print(f'profiler: trace {attempt} of {PROFILE_TRIES} saw no {what}',
               file=sys.stderr, flush=True)
     raise AssertionError(f'profiler saw no {what} in {PROFILE_TRIES} traces')
+
+
+def warm_profiler(tries: int = 5) -> int:
+    """Trace 100 small kernels until a trace holds a record of them (the
+    tracer's first sessions in a process can deliver none, and a window of
+    one launch then misses every try): -> the traces it took."""
+    x = torch.zeros(1 << 20, device=DEVICE)
+    cuda = torch.autograd.DeviceType.CUDA
+    for attempt in range(1, tries + 1):
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(100):
+                x.add_(1.0)
+            torch.cuda.synchronize()
+        if any(e.device_type == cuda for e in prof.key_averages()):
+            return attempt
+    raise AssertionError(f'profiler saw no kernel in {tries} warm-up traces')
 
 
 def device_split(fn, iters: int, symbol=None, exclude=()) -> dict:
@@ -524,12 +559,27 @@ def check_train_maps(shapes):
                              f'step gives K1\'s backward: {got}')
 
 
+def k1_backward_path(q: int, c: int, g: int, itemsize: int):
+    """(path, kernels a call launches) that ``launch_bwd`` in
+    csrc/band_groupnorm.cu takes for a map (the torch allocator's tensors
+    are 16-byte aligned): the warp path, one persistent launch, where the
+    band is whole 16-byte vectors that fit a warp's registers
+    (kBwdLaneVectors = 8 a lane) and cg is a power of two dividing a warp's
+    vector row; else the band pass and the reduce over N, two."""
+    v, cg = 16 // itemsize, c // g
+    length = q * cg
+    warp = (length % v == 0 and cg & (cg - 1) == 0 and (32 * v) % cg == 0
+            and (length // v + 31) // 32 <= 8)
+    return ('warp', 1) if warp else ('band pass + reduce', 2)
+
+
 def k1_backward_at(kc, rng, shapes) -> list:
     """K1's backward at each distinct map of ``k1_backward_shapes``: held
     against its plain version (K1B_*), two calls giving the same bits, and
     timed (``backward_timing``: its device time, split by kernel, and the
-    kernels a call launches, which must be one), with the bound and the
-    count of calls per step."""
+    kernels a call launches, which must be those of the map's path,
+    ``k1_backward_path``), with the bound and the count of calls per
+    step."""
     out = []
     for key in sorted({tuple(sh) for sh in shapes}):
         n, q, c, g, dtype, relu = key
@@ -552,7 +602,8 @@ def k1_backward_at(kc, rng, shapes) -> list:
             raise AssertionError(f'band_groupnorm_backward at train map '
                                  f'{key}: two calls differ')
         timing = backward_timing(call, 100)
-        if DEVICE == 'cuda' and timing['kernels_per_call'] != 1:
+        timing['path'], kernels = k1_backward_path(q, c, g, x.element_size())
+        if DEVICE == 'cuda' and timing['kernels_per_call'] != kernels:
             raise AssertionError(f'band_groupnorm_backward at train map '
                                  f'{key}: {timing}')
         b_ms, b_by = bound_ms(3 * x.numel() * x.element_size() + 12 * c,
@@ -702,6 +753,33 @@ def check_k2(kc, rng, edges: bool):
                road_bound_ms=bound_ms(rb * c * rn * 4
                                       + 2 * rb * c * cap * rs * 4,
                                       rb * c * rn)[0])
+    # the trainer's row lengths: the road preset's anchors at the smallest
+    # and largest train bucket of a 1080p frame, [8, 5, n] from the loss
+    # NMS (pool k = 256, the same cap), exact, and cold at the largest.
+    # Their scores come from a generator of their own, so the later phases
+    # keep the inputs they had before these cases (check_train_reference
+    # fails on most other draws: ROADMAP.md, Queue 3)
+    import masklab_tpu_torch as mt
+    lengths = trainer_row_lengths(mt)
+    trainer_rng = np.random.RandomState(7)
+    rows = {n_t: k2_scores(trainer_rng, 8, c, n_t)
+            for n_t in (lengths[min(lengths)], lengths[max(lengths)])}
+    for n_t, scores in rows.items():
+        got = kc.segment_topk_rows(scores, cap)
+        want = kc.segment_topk_rows_plain(scores, cap)
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f'segment_topk differs from plain at the '
+                                 f"trainer's row length {n_t}")
+    n_t = lengths[max(lengths)]
+    scores, ts = rows[n_t], -(-n_t // m)
+    out.update(trainer_row_lengths=lengths,
+               trainer_shape=f'[8, {c}, {n_t}] f32 (transposed [B, N, C]), '
+               f'cap {cap}',
+               trainer_device_ms=device_ms(cold(lambda: kc.segment_topk_rows(
+                   scores, cap)), 200, 'segment_topk'),
+               trainer_bound_ms=bound_ms(8 * c * n_t * 4
+                                         + 2 * 8 * c * cap * ts * 4,
+                                         8 * c * n_t)[0])
     if edges:
         bad = []
         cases = k2_edges(rng)
@@ -1054,6 +1132,23 @@ def check_train_reference(mt, rng):
     return out
 
 
+def reference_draws(mt, n: int) -> list:
+    """``check_train_reference`` at the batch seeds of RandomState(0) ..
+    RandomState(n - 1): each draw's verdict and its largest reading of
+    each group (the card's; the failing run's where one failed)."""
+    out = []
+    for seed in range(n):
+        try:
+            readings = check_train_reference(mt, np.random.RandomState(seed))
+            verdict = 'pass'
+            worst = {g: v['max'] for g, v in readings['card'].items()}
+        except AssertionError as e:
+            verdict, worst = 'fail', str(e)
+        out.append(dict(seed=seed, verdict=verdict, readings=worst))
+        print(f'reference draw {seed}: {verdict} {worst}', flush=True)
+    return out
+
+
 def train_path(mt, kc):
     """bench.py's train step on the card: resnext50, bf16, batch 4 at 256 px
     from ``make_random_batch(4, (256, 256), 8)``, seeded weights,
@@ -1159,6 +1254,400 @@ def stage_profile(fn):
                 top_device_ms=dict(top),
                 top_host_self_ms={e.key[:60]: [e.self_cpu_time_total / 1e3,
                                                e.count] for e in host_ops})
+
+
+# The trainer phase: the CLI's etl / train / eval on synthetic 1080p road
+# frames (40 frames: 36 train, 4 valid), the road preset at full width,
+# bf16, batch 8, the default scale buckets 0.4-0.6 (416x768 to 640x1152),
+# head / waist / all phases of one epoch of 2 steps each (step sizes 4)
+TRAINER_FRAMES, TRAINER_HW = 40, (1080, 1920)
+TRAINER_ARGS = ['--preset=road', '-compute.compute_dtype', 'bfloat16',
+                '-train.batch_size', '8',
+                '-train.train_head_tune_epoch', '1',
+                '-train.train_waist_tune_epoch', '1',
+                '-train.train_all_epoch', '1', '-train.head_step_size', '4',
+                '-train.waist_step_size', '4', '-train.all_step_size', '4']
+TRAINER_PHASES = ('head', 'waist', 'all')
+TRAINER_KERNELS = ('band_groupnorm', 'band_groupnorm_backward',
+                   'segment_topk', 'nms_keep')
+
+
+def trainer_row_lengths(mt) -> dict:
+    """{scale bucket: K2's row length}, the road preset's anchors at each
+    train scale bucket of a TRAINER_HW frame, sized as the generator sizes
+    it (each side floored to a multiple of 32)."""
+    from masklab_tpu_torch.nn.backbone import grid_padding
+    cfg = mt.road_project_config()
+    prior = mt.priors_from_config(cfg)
+    out = {}
+    for s in cfg.compute.scale_buckets:
+        h = int(TRAINER_HW[0] * s) // 32 * 32
+        w = int(TRAINER_HW[1] * s) // 32 * 32
+        out[s] = len(mt.generate_priors(
+            h, w, prior, padding=grid_padding(cfg.backbone.backbone_type)))
+    return out
+
+
+def batch_digest(batch: dict) -> str:
+    """sha256 of a batch's arrays (keys, dtypes, shapes and bytes)."""
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        a = np.ascontiguousarray(batch[k])
+        h.update(f'{k} {a.dtype} {a.shape}'.encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+@contextlib.contextmanager
+def trainer_probe(kc):
+    """Wraps, for one CLI train run: the train and eval steps (host ms
+    between CUDA synchronizations, kernel launches, K2's row length), the
+    uploads, the waits on the prefetcher, each generator's calls (for
+    ``replay_generators``), the epoch ends and the checkpoint saves, and
+    captures the trainer. Yields the record; restores every original."""
+    from masklab_tpu_torch.data import generator as gen_mod
+    from masklab_tpu_torch.train import trainer as tr
+    from masklab_tpu_torch.train.checkpoints import CheckpointManager
+    rec = dict(phase='smoke', in_epoch_end=False, steps=[], evals=[],
+               uploads=[], waits=[], epoch_ends=[], saves=[], gens={},
+               trainer=None, train_gen=None, last=None)
+    originals = []
+
+    def patch(owner, name, make):
+        originals.append((owner, name, getattr(owner, name)))
+        setattr(owner, name, make(getattr(owner, name)))
+
+    def synced_ms(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - start) * 1e3
+
+    def train_step(orig):
+        def make(model, with_metrics=True):
+            step = orig(model, with_metrics)
+
+            def run(state, batch):
+                before = kc.launch_counts()
+                (state, metrics), ms = synced_ms(step, state, batch)
+                after = kc.launch_counts()
+                h, w = batch['images'].shape[1:3]
+                rec['steps'].append(dict(
+                    phase=rec['phase'], ms=ms, hw=[h, w],
+                    anchors=int(model._priors(h, w, batch['images'].device)
+                                .shape[0]),
+                    launches={k: after[k] - before[k] for k in after},
+                    loss=metrics['loss'].item()))
+                rec['last'] = (step, state, batch)
+                return state, metrics
+            return run
+        return make
+
+    def eval_step(orig):
+        def make(model, with_metrics=True):
+            step = orig(model, with_metrics)
+
+            def run(state, batch):
+                metrics, ms = synced_ms(step, state, batch)
+                rec['evals'].append(dict(phase=rec['phase'], ms=ms))
+                return metrics
+            return run
+        return make
+
+    def prepare(orig):
+        def run(self, batch):
+            out, ms = synced_ms(orig, self, batch)
+            rec['uploads'].append(dict(phase=rec['phase'], ms=ms,
+                                       validation=rec['in_epoch_end']))
+            return out
+        return run
+
+    def end_epoch(orig):
+        def run(self, *args, **kwargs):
+            rec['in_epoch_end'] = True
+            try:
+                _, ms = synced_ms(orig, self, *args, **kwargs)
+            finally:
+                rec['in_epoch_end'] = False
+            rec['epoch_ends'].append(dict(phase=rec['phase'], ms=ms))
+        return run
+
+    def run_phase(orig):
+        def run(self, name, generator, *args, **kwargs):
+            rec.update(phase=name, trainer=self, train_gen=generator)
+            return orig(self, name, generator, *args, **kwargs)
+        return run
+
+    def save_epoch(orig):
+        def run(self, state, loss, epoch):
+            path, ms = synced_ms(orig, self, state, loss, epoch)
+            rec['saves'].append(dict(phase=rec['phase'], path=path, ms=ms,
+                                     bytes=sum(
+                os.path.getsize(os.path.join(path, f))
+                for f in os.listdir(path))))
+            return path
+        return run
+
+    def gen_init(orig):
+        def run(self, *args, **kwargs):
+            orig(self, *args, **kwargs)
+            rec['gens'][id(self)] = dict(args=args, kwargs=kwargs,
+                                         events=[])
+        return run
+
+    def gen_getitem(orig):
+        def run(self, index):
+            batch = orig(self, index)
+            if id(self) in rec['gens']:
+                rec['gens'][id(self)]['events'].append(
+                    ('get', index, batch_digest(batch)))
+            return batch
+        return run
+
+    def gen_epoch_end(orig):
+        def run(self):
+            orig(self)
+            if id(self) in rec['gens']:
+                rec['gens'][id(self)]['events'].append(('end',))
+        return run
+
+    def prefetch_iter(orig):
+        def run(self):
+            inner = orig(self)
+            while True:
+                start = time.perf_counter()
+                try:
+                    item = next(inner)
+                except StopIteration:
+                    return
+                rec['waits'].append(dict(
+                    phase=rec['phase'],
+                    ms=(time.perf_counter() - start) * 1e3))
+                yield item
+        return run
+
+    def train_model(orig):
+        def run(config, *args, **kwargs):
+            torch.cuda.reset_peak_memory_stats()
+            trainer, ms = synced_ms(orig, config, *args, **kwargs)
+            rec.update(trainer=trainer, train_ms=ms,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+            return trainer
+        return run
+
+    patch(tr, 'make_train_step', train_step)
+    patch(tr, 'make_eval_step', eval_step)
+    patch(tr, 'train_masklab_model', train_model)
+    patch(tr.MaskLabTrainer, '_prepare', prepare)
+    patch(tr.MaskLabTrainer, '_end_epoch', end_epoch)
+    patch(tr.MaskLabTrainer, 'run_phase', run_phase)
+    patch(CheckpointManager, 'save_epoch', save_epoch)
+    patch(gen_mod.MaskLabGenerator, '__init__', gen_init)
+    patch(gen_mod.MaskLabGenerator, '__getitem__', gen_getitem)
+    patch(gen_mod.MaskLabGenerator, 'on_epoch_end', gen_epoch_end)
+    patch(gen_mod.PrefetchIterator, '__iter__', prefetch_iter)
+    try:
+        yield rec
+    finally:
+        for owner, name, orig in reversed(originals):
+            setattr(owner, name, orig)
+
+
+def replay_generators(rec) -> int:
+    """Each generator of the run rebuilt on the host from its arguments
+    (the same seed) and driven by the same calls in the same order: every
+    batch must have the card run's digest. -> the batches compared."""
+    from masklab_tpu_torch.data.generator import MaskLabGenerator
+    compared = 0
+    for g in rec['gens'].values():
+        gen = MaskLabGenerator(*g['args'], **g['kwargs'])
+        for event in g['events']:
+            if event[0] == 'end':
+                gen.on_epoch_end()
+                continue
+            _, index, digest = event
+            if batch_digest(gen[index]) != digest:
+                raise AssertionError(f'trainer: batch {index} of a generator '
+                                     'differs from its host replay')
+            compared += 1
+    return compared
+
+
+def check_trainer_outputs(mt, rec, run_dir) -> dict:
+    """The trainer's files and state: metrics.csv 3 rows with val_loss and
+    lr, every value finite; 3 checkpoints, no tmp name left, the best the
+    lowest parsed loss; the last checkpoint restored into a new state
+    equal bit for bit to the trainer's; eval.json's mIoUs finite."""
+    import csv
+    from masklab_tpu_torch import train
+    from masklab_tpu_torch.train.checkpoints import CheckpointManager
+    with open(os.path.join(run_dir, 'metrics.csv')) as f:
+        rows = list(csv.DictReader(f))
+    if len(rows) != len(TRAINER_PHASES) or not {'val_loss', 'lr'} <= set(
+            rows[0]):
+        raise AssertionError(f'trainer: metrics.csv rows {rows}')
+    if not all(np.isfinite(float(v)) for r in rows for v in r.values()):
+        raise AssertionError(f'trainer: a logged value is not finite: {rows}')
+    names = [n for n in os.listdir(run_dir)
+             if os.path.isdir(os.path.join(run_dir, n)) and '-' in n]
+    if len(names) != len(TRAINER_PHASES) or any('tmp' in n for n in names):
+        raise AssertionError(f'trainer: checkpoints {names}')
+    manager = CheckpointManager(run_dir)
+    lowest = min(names, key=lambda n: float(n.rsplit('-', 1)[0]))
+    if manager.best_checkpoint() != os.path.join(run_dir, lowest):
+        raise AssertionError(f'trainer: best {manager.best_checkpoint()}, '
+                             f'lowest {lowest}')
+    trainer = rec['trainer']
+    state = trainer.state
+    restored = manager.restore_state(
+        train.TrainState(mt.build_masklab(trainer.config, device=DEVICE),
+                         state.tx), rec['saves'][-1]['path'])
+    same = dict(
+        params=all(torch.equal(restored.params[k], v)
+                   for k, v in state.params.items()),
+        batch_stats=all(torch.equal(restored.batch_stats[k], v)
+                        for k, v in state.batch_stats.items()),
+        moments=all(torch.equal(a[k], b[k])
+                    for a, b in ((restored.opt_state[0].mu,
+                                  state.opt_state[0].mu),
+                                 (restored.opt_state[0].nu,
+                                  state.opt_state[0].nu))
+                    for k in b),
+        box_state=all(torch.equal(a, b) for a, b in zip(
+            restored.box_loss_state, state.box_loss_state)),
+        step=restored.step == state.step)
+    if not all(same.values()):
+        raise AssertionError(f'trainer: restore_state differs: {same}')
+    del restored
+    with open(os.path.join(run_dir, 'eval.json')) as f:
+        evaluation = json.load(f)
+    if not all(np.isfinite(evaluation[k])
+               for k in ('semantic_miou', 'mask_miou')):
+        raise AssertionError(f'trainer: eval.json {evaluation}')
+    return dict(metrics_rows=rows, checkpoints=sorted(names),
+                best=os.path.basename(manager.best_checkpoint()),
+                restored_bit_for_bit=same, eval=evaluation)
+
+
+def trainer_path(mt, kc, rng):
+    """The user's training path on the card, through the CLI: ``etl`` of
+    TRAINER_FRAMES synthetic TRAINER_HW frames, ``train`` (TRAINER_ARGS:
+    smoke check at the largest bucket, then head / waist / all, each epoch
+    validated and checkpointed; the road preset's mesh_data 2 clamped to
+    the one card), whose own eval follows, and ``eval`` once more. Every
+    step's losses finite and K1, K1's backward, K2 and K3 launched in it;
+    the outputs checked (``check_trainer_outputs``); the generators'
+    batches equal to their host replay. Then K1's backward's maps in one
+    more step, and one traced step (data wait, upload and the step's
+    spans)."""
+    import shutil
+    import tempfile
+    from torch.profiler import record_function
+    from masklab_tpu_torch import cli, train
+    from masklab_tpu_torch.data import make_synthetic_dataset
+    from masklab_tpu_torch.data.generator import PrefetchIterator
+    root = tempfile.mkdtemp(prefix='chip_smoke_trainer-')
+    try:
+        data_dir = os.path.join(root, 'data')
+        logs = os.path.join(root, 'logs')
+        start = time.perf_counter()
+        make_synthetic_dataset(data_dir, num_images=TRAINER_FRAMES,
+                               image_hw=TRAINER_HW, seed=0)
+        synthetic_s = time.perf_counter() - start
+        start = time.perf_counter()
+        cli.main(['etl', f'-dataset.data_dir={data_dir}'])
+        etl_s = time.perf_counter() - start
+        # the CLI's own default device is the card
+        device = [] if DEVICE == 'cuda' else [f'--device={DEVICE}']
+        kc.reset_launch_counts()
+        with trainer_probe(kc) as rec:
+            start = time.perf_counter()
+            cli.main(['train', *TRAINER_ARGS, *device, '-dataset.data_dir',
+                      data_dir, '-train.save_dir', logs])
+            torch.cuda.synchronize()
+            cli_train_s = time.perf_counter() - start
+        launches = kc.launch_counts()
+        run_dir = os.path.join(logs, os.listdir(logs)[0])
+        start = time.perf_counter()
+        cli.main(['eval', *TRAINER_ARGS, *device, '-dataset.data_dir',
+                  data_dir, '-train.save_dir', run_dir])
+        eval_s = time.perf_counter() - start
+        steps = rec['steps']
+        counted = [s for s in steps if s['phase'] in TRAINER_PHASES]
+        if [s['phase'] for s in steps] != ['smoke'] + [
+                p for p in TRAINER_PHASES for _ in range(2)]:
+            raise AssertionError(f'trainer: steps {[s["phase"] for s in steps]}')
+        for i, s in enumerate(steps):
+            if not np.isfinite(s['loss']):
+                raise AssertionError(f'trainer step {i}: loss {s["loss"]}')
+            for name in TRAINER_KERNELS:
+                if s['launches'][name] == 0:
+                    raise AssertionError(f'trainer step {i} ({s["phase"]}): '
+                                         f'{name} not launched')
+        outputs = check_trainer_outputs(mt, rec, run_dir)
+        start = time.perf_counter()
+        replayed = replay_generators(rec)
+        replay_s = time.perf_counter() - start
+
+        trainer, (step, state, batch) = rec['trainer'], rec['last']
+        k1b_shapes = k1_backward_shapes(step, state, batch)
+        step = train.make_train_step(trainer.model)
+        prefetcher = PrefetchIterator(rec['train_gen'], prefetch=4)
+        it = iter(prefetcher)
+
+        def one_step():
+            with record_function('stage:data_wait'):
+                b = next(it)
+            trainer.state, _ = step(trainer.state, trainer._prepare(b))
+        try:
+            one_step()
+            profile = stage_profile(one_step)
+        finally:
+            prefetcher.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def by_phase(items, phase, **match):
+        return [x['ms'] for x in items if x['phase'] == phase
+                and all(x[k] == v for k, v in match.items())]
+    import importlib.util
+    step_ms = sum(s['ms'] for s in counted)
+    waits = [w['ms'] for w in rec['waits'] if w['phase'] in TRAINER_PHASES]
+    uploads = [u['ms'] for u in rec['uploads']
+               if u['phase'] in TRAINER_PHASES and not u['validation']]
+    saves = rec['saves']
+    return dict(
+        config=f'road seresnet34 bf16 b8, {TRAINER_FRAMES} frames '
+               f'{TRAINER_HW[0]}x{TRAINER_HW[1]}',
+        synthetic_s=synthetic_s, etl_s=etl_s, cli_train_s=cli_train_s,
+        train_s=rec['train_ms'] / 1e3, eval_s=eval_s, replay_s=replay_s,
+        steps=len(counted),
+        smoke_ms=steps[0]['ms'], smoke_hw=steps[0]['hw'],
+        ms_per_step={p: statistics.median(by_phase(counted, p))
+                     for p in TRAINER_PHASES},
+        step_ms=[s['ms'] for s in counted],
+        step_hw=[s['hw'] for s in counted],
+        img_per_s=8 * len(counted) / (step_ms / 1e3),
+        data_wait_ms=waits, data_wait_ms_per_step=sum(waits) / len(counted),
+        data_wait_share=sum(waits) / (sum(waits) + sum(uploads) + step_ms),
+        upload_ms=uploads,
+        validation_ms=[e['ms'] - s['ms']
+                       for e, s in zip(rec['epoch_ends'], saves)],
+        checkpoint_ms=[s['ms'] for s in saves],
+        checkpoint_bytes=saves[-1]['bytes'],
+        peak_memory_bytes=rec['peak_memory_bytes'],
+        launches=launches,
+        launches_per_step=[s['launches'] for s in counted],
+        k2_row_lengths=sorted({s['anchors'] for s in steps}),
+        replayed_batches=replayed,
+        # the loggers' optional packages, and pandas, which the port's data
+        # pipeline does without
+        host_packages={m: importlib.util.find_spec(m) is not None
+                       for m in ('pandas', 'tensorboard', 'mlflow')},
+        first_loss=steps[1]['loss'], last_loss=steps[-1]['loss'],
+        k1_backward_shapes=k1b_shapes, **outputs, **profile)
 
 
 def deployment(mt, cfg):
@@ -1436,6 +1925,13 @@ def main() -> int:
     parser.add_argument('--serve-only', action='store_true',
                         help='card, build and the two deployments\' serve '
                         'paths only (phase 5 without the headline extras)')
+    parser.add_argument('--trainer-only', action='store_true',
+                        help='card, build, K2 at the main path and the '
+                        "trainer's row lengths, and the trainer phase only")
+    parser.add_argument('--reference-draws', type=int, default=0,
+                        metavar='N', help='card, build and '
+                        'check_train_reference at the batch seeds of '
+                        'RandomState(0..N-1) only, each reported')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA card available', file=sys.stderr)
@@ -1453,6 +1949,7 @@ def main() -> int:
     print(f'build: {_build.build_seconds:.1f} s', flush=True)
     for line in _build.register_report():
         print(f'ptxas: {line}', file=sys.stderr)
+    print(f'profiler: warm after {warm_profiler()} trace(s)', flush=True)
 
     rng = np.random.RandomState(0)
     if args.serve_only:
@@ -1462,6 +1959,16 @@ def main() -> int:
                                    ROAD_BATCH)
         finish(card, {'serve': dict(serve, **road)})
         return 0
+    if args.reference_draws:
+        finish(card, {'reference_draws': reference_draws(
+            mt, args.reference_draws)})
+        return 0
+    if args.trainer_only:
+        k2 = check_k2(kc, rng, False)
+        print_k2(k2)
+        trained = run_trainer(mt, kc, rng)
+        finish(card, {'kernels': [k2], 'trainer': trained})
+        return 0
     edges = not args.kernels_only
     kernels = [check_k1(kc, rng, edges), check_k1_backward(kc, rng, edges),
                check_k2(kc, rng, edges), check_k3(kc, rng, edges)]
@@ -1469,15 +1976,7 @@ def main() -> int:
         print(f'kernel {k["name"]}: device {k["device_ms"]:.4f} ms, call '
               f'{k["call_ms"]:.4f} (plain {k["plain_ms"]:.4f}, bound '
               f'{k["bound_ms"]:.4f}) {k["shape"]}', flush=True)
-    k2 = kernels[2]
-    l2 = ' (below the HBM bound: read from L2)' if k2['hot_below_bound'] \
-        else ''
-    print(f'kernel segment_topk: cold {k2["device_ms"]:.5f} ms, hot '
-          f'{k2["device_hot_ms"]:.5f}{l2}, pool {k2["pool_ms"]:.5f}, '
-          f'torch.topk {k2["library_ms"]:.5f} cold; f32 scores '
-          f'{k2.get("device_f32_ms")}; road form {k2["road_shape"]} cold '
-          f'{k2["road_device_ms"]:.5f} (bound {k2["road_bound_ms"]:.5f})',
-          flush=True)
+    print_k2(kernels[2])
     if args.kernels_only:
         kernels[1]['train_maps'] = k1_backward_at(kc, rng, K1B_TRAIN_MAPS)
         print(f'kernel band_groupnorm_backward at the train maps: '
@@ -1527,7 +2026,10 @@ def main() -> int:
                                        trained.pop('k1_backward_shapes'))
     print(f'kernel band_groupnorm_backward at the train maps: '
           f'{json.dumps(k1b["train_maps"])}', flush=True)
-    paths = dict(serve, train=trained)
+    trainer = run_trainer(mt, kc, rng)
+    paths = dict(serve, train=trained, trainer=dict(
+        launches={k: sum(c[k] for c in trainer['launches_per_step'])
+                  for k in TRAINER_KERNELS}))
     for k in kernels:
         k['launches_by_path'] = {p: v['launches'][k['name']]
                                  for p, v in paths.items()}
@@ -1538,8 +2040,58 @@ def main() -> int:
             k['pool_fallbacks'] = {p: v['pool_fallbacks']
                                    for p, v in serve.items()}
     finish(card, {'kernels': kernels, 'serve': serve, 'train': trained,
-                  'reference': reference, **more})
+                  'trainer': trainer, 'reference': reference, **more})
     return 0
+
+
+def print_k2(k2) -> None:
+    l2 = ' (below the HBM bound: read from L2)' if k2['hot_below_bound'] \
+        else ''
+    print(f'kernel segment_topk: cold {k2["device_ms"]:.5f} ms, hot '
+          f'{k2["device_hot_ms"]:.5f}{l2}, pool {k2["pool_ms"]:.5f}, '
+          f'torch.topk {k2["library_ms"]:.5f} cold; f32 scores '
+          f'{k2.get("device_f32_ms")}; road form {k2["road_shape"]} cold '
+          f'{k2["road_device_ms"]:.5f} (bound {k2["road_bound_ms"]:.5f}); '
+          f'trainer rows {json.dumps(k2["trainer_row_lengths"])}, '
+          f'{k2["trainer_shape"]} cold {k2["trainer_device_ms"]:.5f} (bound '
+          f'{k2["trainer_bound_ms"]:.5f})', flush=True)
+
+
+def run_trainer(mt, kc, rng) -> dict:
+    """``trainer_path``, its lines printed, and K1's backward held and
+    timed at the maps a trainer step gave it."""
+    trained = trainer_path(mt, kc, rng)
+    print(f'trainer: {trained["config"]}, median ms a step by phase '
+          f'{json.dumps(trained["ms_per_step"])} (steps '
+          f'{[round(t, 2) for t in trained["step_ms"]]} at '
+          f'{trained["step_hw"]}; smoke {trained["smoke_ms"]:.2f} at '
+          f'{trained["smoke_hw"]}), {trained["img_per_s"]:.2f} img/s, data '
+          f'wait {trained["data_wait_ms_per_step"]:.2f} ms a step (share '
+          f'{trained["data_wait_share"]:.3f}; waits '
+          f'{[round(t, 2) for t in trained["data_wait_ms"]]}), upload '
+          f'{[round(t, 2) for t in trained["upload_ms"]]} ms, validation '
+          f'{[round(t, 2) for t in trained["validation_ms"]]} ms, checkpoint '
+          f'{[round(t, 2) for t in trained["checkpoint_ms"]]} ms / '
+          f'{trained["checkpoint_bytes"]} bytes, peak memory '
+          f'{trained["peak_memory_bytes"] / 2**30:.2f} GiB, launches per '
+          f'step {json.dumps(trained["launches_per_step"])}, K2 row lengths '
+          f'{trained["k2_row_lengths"]}, losses {trained["first_loss"]:.5f} '
+          f'-> {trained["last_loss"]:.5f}, eval '
+          f'{json.dumps(trained["eval"])}, {trained["replayed_batches"]} '
+          f'batches equal to their host replay; synthetic '
+          f'{trained["synthetic_s"]:.1f} s, etl {trained["etl_s"]:.1f} s, '
+          f'cli train {trained["cli_train_s"]:.1f} s (trainer '
+          f'{trained["train_s"]:.1f}), eval {trained["eval_s"]:.1f} s, '
+          f'replay {trained["replay_s"]:.1f} s; packages '
+          f'{json.dumps(trained["host_packages"])}', flush=True)
+    print(f'stages trainer: {json.dumps(trained["stages"])}, busy share '
+          f'{trained["device_busy_share"]:.3f}, top host ops (self ms, '
+          f'calls) {json.dumps(trained["top_host_self_ms"])}', flush=True)
+    trained['k1_backward_maps'] = k1_backward_at(
+        kc, rng, trained.pop('k1_backward_shapes'))
+    print(f'kernel band_groupnorm_backward at the trainer maps: '
+          f'{json.dumps(trained["k1_backward_maps"])}', flush=True)
+    return trained
 
 
 def finish(card: str, result: dict) -> None:

@@ -2,9 +2,12 @@
 
 A field-for-field copy of ``masklab_tpu/config.py``, kept here so that the
 PyTorch port imports nothing of the JAX package. Configurations saved by
-either package load in the other. The ``compute`` group's TPU knobs
-(capacity ladder, remat) are accepted and ignored by the port; the fused
-mask head, which changes the model, raises where the reference builds it.
+either package load in the other. The ``compute`` group's TPU layout knobs
+(capacity ladder, model mesh) are accepted and ignored by the port; remat
+recomputes the backbone in the backward pass; ``mesh_data`` asks the trainer
+for data parallelism, which is not ported and raises where more than one
+card would take part; the fused mask head, which changes the model, raises
+where the reference builds it.
 
 Re-design of the reference's ``ModelConfiguration``
 (the reference engine/config.py:10-248): eight nested attribute groups with
@@ -211,10 +214,12 @@ class ComputeConfig:
     scale_buckets: Tuple[float, ...] = (0.4, 0.45, 0.5, 0.55, 0.6)
     # The fields below are the JAX package's TPU knobs (mesh axes, remat,
     # fused mask head, capacity-bucketed mask compaction). They are kept so
-    # that configurations round-trip between the packages; the port reads
-    # none of them (its mask branch always runs each level's head on
-    # exactly that level's boxes), except that MaskLab refuses
-    # fused_mask_head where the reference would build FusedMaskSubNet.
+    # that configurations round-trip between the packages. The port's mask
+    # branch always runs each level's head on exactly that level's boxes;
+    # MaskLab honours remat_backbone (torch.utils.checkpoint) and refuses
+    # fused_mask_head where the reference would build FusedMaskSubNet; the
+    # trainer clamps mesh_data to the cards present, as the reference
+    # clamps it to its devices, and refuses more than one.
     mesh_data: int = 1
     mesh_model: int = 1
     remat_backbone: bool = False

@@ -4,9 +4,11 @@ Port of ``masklab_tpu/models/masklab.py`` (``raw_heads`` :138-164,
 ``mask_branch`` :166-185, ``__call__`` :189-207, ``trainer_outputs``
 :209-244): shared backbone, FPN, cls/loc heads, detection-config NMS, the
 routed mask branch and the semantic head, with squeeze-excite heads where
-the configuration asks for them (the road preset). Separable heads
-(``use_separable_conv``) and the fused mask head (``fused_mask_head`` with
-plain instance heads) are not ported yet and raise. The BatchNorm mode is
+the configuration asks for them (the road preset), and the backbone
+recomputed in the backward pass under ``compute.remat_backbone``.
+Separable heads (``use_separable_conv``) and the fused mask head
+(``fused_mask_head`` with plain instance heads) are not ported yet and
+raise. The BatchNorm mode is
 the module's: ``model.train()`` for the reference's ``train=True``.
 Public outputs keep the reference's layouts: NHWC images in, ``cls_pred``
 [B, N, C], ``roi_boxes`` [B, K, 6], ``roi_masks`` [B, K, 28, 28, C] and
@@ -14,15 +16,18 @@ Public outputs keep the reference's layouts: NHWC images in, ``cls_pred``
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 from torch.profiler import record_function
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfiguration
 from ..device import resolve_device
 from ..nn.backbone import BackboneNetwork, backbone_channels, grid_padding
+from ..nn.layers import frozen_batch_stats
 from ..ops.boxes import decode_boxes
 from ..ops.nms import batched_class_aware_nms
 from ..prior import generate_priors, priors_from_config
@@ -126,7 +131,16 @@ class MaskLab(nn.Module):
         """Backbone -> FPN -> cls/loc heads + ASPP/decoder + priors."""
         cfg = self.config
         images = images.float()
-        endpoints = self.backbone(images)
+        if cfg.compute.remat_backbone and torch.is_grad_enabled():
+            # recompute the backbone's activations in the backward pass (the
+            # reference's nn.remat); the recomputation must not update the
+            # BatchNorm statistics a second time
+            endpoints = checkpoint(
+                self.backbone, images, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    frozen_batch_stats(self.backbone)))
+        else:
+            endpoints = self.backbone(images)
         fpn_outputs = self.fpn([endpoints[n] for n in self.fpn_names])
         features = fpn_outputs + [endpoints[n] for n in self.other_names]
         cls_pred = self.cls_subnet(features).float()

@@ -21,6 +21,8 @@ of the plain stride-2 stem conv).
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -163,13 +165,17 @@ class BatchNorm(nn.Module):
     0) (biased), and updates the running ones as ``r = momentum * r + (1 -
     momentum) * batch`` with that same biased variance (``F.batch_norm``
     would store the unbiased one, and weighs its momentum the other way).
-    ``use_scale=False`` has no scale (``weight`` is None)."""
+    ``use_scale=False`` has no scale (``weight`` is None). While
+    ``update_stats`` is False a train-mode call leaves the running
+    statistics alone: the recomputation of a checkpointed forward
+    (``frozen_batch_stats``) must not apply the momentum update twice."""
 
     def __init__(self, channels: int, eps: float = 1e-3,
                  use_scale: bool = True, momentum: float = 0.99):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.update_stats = True
         self.weight = (nn.Parameter(torch.ones(channels)) if use_scale
                        else None)
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -183,11 +189,13 @@ class BatchNorm(nn.Module):
             mean = f.mean((0, 2, 3))
             var = torch.clamp(f.square().mean((0, 2, 3)) - mean.square(),
                               min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.copy_(m * self.running_mean
-                                        + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+            if self.update_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    self.running_mean.copy_(m * self.running_mean
+                                            + (1 - m) * mean)
+                    self.running_var.copy_(m * self.running_var
+                                           + (1 - m) * var)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps)
@@ -195,6 +203,20 @@ class BatchNorm(nn.Module):
             mul = mul * self.weight
         y = (f - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module):
+    """Within the block, the BatchNorms of ``module`` leave their running
+    statistics alone in train mode."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = True
 
 
 class SqueezeExcite(nn.Module):

@@ -35,6 +35,28 @@ def test_import_leaves_jax_unloaded():
                    timeout=120)
 
 
+# the training slice's modules; the data modules read and write the ETL's
+# tables without pandas, which the chip machine is not known to have
+TRAINING_MODULES = ['data.dataset', 'data.generator', 'data.imglab',
+                    'data.process', 'data.synthetic', 'data.tables', 'native',
+                    'train.trainer', 'train.checkpoints', 'utils.loggers',
+                    'eval.miou', 'cli']
+
+
+@pytest.mark.parametrize('module', TRAINING_MODULES)
+def test_training_module_imports_no_jax_reference_or_pandas(module):
+    """Imported alone in a fresh interpreter: no jax, flax or masklab_tpu
+    module is loaded, nor pandas by a data module."""
+    banned = "('jax', 'flax', 'masklab_tpu.')"
+    if module.startswith('data.'):
+        banned = "('jax', 'flax', 'masklab_tpu.', 'pandas')"
+    code = (f"import sys, masklab_tpu_torch.{module}; "
+            f"bad = sorted(m for m in sys.modules if m.startswith({banned}) "
+            "or m == 'masklab_tpu'); assert not bad, bad")
+    subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
+                   timeout=120)
+
+
 def test_sources_import_nothing_of_jax_or_the_reference():
     offenders = []
     for path in _port_sources():
@@ -46,7 +68,9 @@ def test_sources_import_nothing_of_jax_or_the_reference():
                                      f'{line.strip()}')
     walked = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in ('train/steps.py', 'train/optimizers.py', 'train/state.py',
-                   'losses.py', 'metrics.py', 'data/synthetic.py'):
+                   'losses.py', 'metrics.py', 'data/synthetic.py',
+                   *(m.replace('.', '/') + '.py' for m in TRAINING_MODULES
+                     if m != 'native'), 'native/__init__.py'):
         assert os.path.join('masklab_tpu_torch', module) in walked, module
     assert not offenders, offenders
 
