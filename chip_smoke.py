@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (masklab_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--kernels-only | --serve-only | --trainer-only]
+    python3 chip_smoke.py [--kernels-only | --serve-only | --trainer-only
+                           | --deploy-only | --reference-draws N]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -23,9 +24,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      headline configuration and of the road preset on the card against the
      same models on the CPU, where every kernel's plain version runs; and
      one train step of a narrow float32 model on the resnext50 body (128
-     px) on the card against a float64 step on the CPU, each tensor within
-     TRAIN_REF_RATIO x the CPU float32 step's own error, with a TF32 step
-     as the control that must fail (``check_train_reference``);
+     px) on the card against a float64 step on the CPU, every run on the
+     float64 step's loss-NMS proposals and ReLU gates with its own
+     targets held to the float64 step's, each tensor within TRAIN_REF_RATIO
+     x the larger error of two CPU float32 steps (default threads, one
+     thread), with a TF32 step as the control that must fail
+     (``check_train_reference``);
   5. serve: two deployments behind ``MaskLabPredictor``, forced dense, 512
      px: the headline (mobilenet, width 128, depth 4, bf16, batch 16) and
      the road preset (seresnet34, squeeze-excite heads, bf16, batch 8).
@@ -61,7 +65,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      K1's backward at the maps a trainer step gave it and one traced step
      (data wait, upload and the step's spans). K2 (phase 3) is also held
      and timed at the trainer's row lengths (the road preset's anchors at
-     the 0.4 and 0.6 buckets of a 1080p frame).
+     the 0.4 and 0.6 buckets of a 1080p frame);
+  8. deployment: the CLI's default deployment (``ModelConfiguration()``:
+     resnet50, widths 128, float32, 540x960) end to end
+     (``default_deployment``): checkpoint A, ``cli export --dest``, the
+     CLI's serve over the bundle (watcher on, micro-batch 16) with 16 HTTP
+     clients sending 1080p JPEG frames for DEPLOY_ROUNDS counted rounds
+     (img/s, p50, p99, batch sizes, launches); checkpoint B written into
+     the bundle under load and POST /reload (model_version flips, no
+     request fails, answers then equal a predictor built on B; the swap's
+     ms and peak memory); ``cli process --batch=8`` against per-image
+     predictions; K1 against its plain version at every map a b16
+     forward gives it; K2 exact and cold at the deployment's [16, 5,
+     163275];
+  9. backbones: the ten other bodies of the registry at full width, 512
+     px, card vs CPU at every endpoint, and one bf16 forward each;
+ 10. separable: the deployment with separable heads, narrow card vs CPU,
+     one full-width summarize request, K1 at the maps it gets.
+
+Phases 8-10 run after phase 6 and before phase 7.
 
 Then it prints the ``kernels`` JSON line (each kernel's ``launches`` from
 the headline raw path, K1's backward's from the train path,
@@ -77,9 +99,9 @@ comparing two trees in one call. ``--serve-only`` runs phases 1, 2 and the
 two deployments' serve paths (phase 5 without the headline's extras), for
 comparing the serve paths of two trees the same way. ``--trainer-only``
 runs phases 1, 2, K2's check (without its edge cases) and phase 7.
-``--reference-draws N`` runs phases 1, 2 and phase 4's train reference at
-N fresh batch seeds, reporting each verdict (a failing draw does not fail
-the run).
+``--deploy-only`` runs phases 1, 2 and 8-10. ``--reference-draws N`` runs
+phases 1, 2 and phase 4's train reference at N fresh batch seeds, reporting
+each verdict (a failing draw does not fail the run).
 """
 import argparse
 import contextlib
@@ -95,6 +117,7 @@ import time
 import numpy as np
 import torch
 
+STARTED = time.perf_counter()
 H100_BYTES_PER_S = 3.35e12     # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # FP32 outside the tensor cores
 # K3's greedy sweep: cycles each dependent step needs at least, an estimate
@@ -324,16 +347,16 @@ def k1_errors(kc, x, scale, bias, g: int, relu: bool):
             ((got - exact).abs() / ulp).max().item())
 
 
-def k1_cases(kc, rng, shapes, g=16):
-    """K1 at each (n, Q, C), f32 and bf16, relu off and on; raises after
-    trying them all if any is outside its tolerance."""
+def k1_cases(kc, rng, shapes, g=16, dtypes=(torch.float32, torch.bfloat16)):
+    """K1 at each (n, Q, C), in each of ``dtypes``, relu off and on; raises
+    after trying them all if any is outside its tolerance."""
     cases, bad = [], []
     for n, q, c in shapes:
         x = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2
                              + 1).to(DEVICE)
         scale = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
         bias = torch.from_numpy(rng.rand(c).astype(np.float32)).to(DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             for relu in (False, True):
                 err, exact_err = k1_errors(kc, x.to(dtype), scale, bias, g,
                                            relu)
@@ -347,6 +370,38 @@ def k1_cases(kc, rng, shapes, g=16):
                     bad.append(case)
     if bad:
         raise AssertionError(f'band_groupnorm outside tolerance: {bad}')
+    return cases
+
+
+@contextlib.contextmanager
+def recorded_k1_maps():
+    """Within the block, every ragged GroupNorm of the model (the port's
+    ``BandGroupNormFn``, whose forward is K1 on the card) records its map:
+    yields the list of (n, Q, C, groups, dtype, relu), one a call."""
+    from masklab_tpu_torch.nn import layers
+    maps, original = [], layers.BandGroupNormFn
+
+    class Recorder:
+        @staticmethod
+        def apply(x, scale, bias, groups, eps, relu):
+            maps.append(tuple(x.shape) + (groups, x.dtype, bool(relu)))
+            return original.apply(x, scale, bias, groups, eps, relu)
+    layers.BandGroupNormFn = Recorder
+    try:
+        yield maps
+    finally:
+        layers.BandGroupNormFn = original
+
+
+def k1_at_maps(kc, rng, maps) -> list:
+    """K1 against its plain version at each distinct (n, Q, C) of the maps
+    ``recorded_k1_maps`` saw, in each map's dtype and groups, relu off and
+    on; raises if any is outside its tolerance."""
+    cases = []
+    for g, dtype in sorted({(m[3], m[4]) for m in maps}, key=str):
+        shapes = sorted({m[:3] for m in maps if m[3:5] == (g, dtype)})
+        for case in k1_cases(kc, rng, shapes, g, dtypes=(dtype,)):
+            cases.append(dict(case, groups=g))
     return cases
 
 
@@ -680,13 +735,20 @@ def kernel_names(fn) -> set:
     return names(prof)
 
 
-def l2_flusher():
-    """A call that evicts the 50 MB L2 by rewriting a 128 MB scratch tensor,
-    and its kernels' symbols (for ``device_ms``'s ``exclude``)."""
+def l2_flush():
+    """A call that evicts the 50 MB L2 by rewriting a 128 MB scratch
+    tensor."""
     scratch = torch.zeros(32 << 20, dtype=torch.int32, device=DEVICE)
 
     def flush():
         torch.bitwise_not(scratch, out=scratch)
+    return flush
+
+
+def l2_flusher():
+    """``l2_flush()`` and its kernels' symbols (for ``device_ms``'s
+    ``exclude``)."""
+    flush = l2_flush()
     return flush, kernel_names(flush)
 
 
@@ -1009,16 +1071,199 @@ def train_config(mt):
     return cfg
 
 
-def _train_step_run(mt, cfg, batch, dev: str, float64: bool = False):
-    """One train step of ``cfg``'s model (seed 2) on ``dev`` -> {name: the
+# the train step's discrete decisions, (module, function). The loss NMS's
+# proposals are replayed: every run takes the witness's. The targets the
+# losses compare with (the anchors' classes, deltas and positive / negative
+# / ignore marks from IoU thresholds; the RoIs' mask targets from their best
+# gt; the rounded segmentation target) are held: each run computes its own,
+# which must equal the witness's except where a value sits within
+# TARGET_NEAR of a threshold or a tie (``target_flips``), and then goes on
+# with the witness's
+REPLAYED_DECISIONS = (('masklab_tpu_torch.models.masklab',
+                       'batched_class_aware_nms'),)
+HELD_TARGETS = (('masklab_tpu_torch.train.steps', 'batched_assign_boxes'),
+                ('masklab_tpu_torch.train.steps', 'assign_masks'),
+                ('masklab_tpu_torch.train.steps', 'assign_seg'))
+STEP_DECISIONS = REPLAYED_DECISIONS + HELD_TARGETS
+# a target's underlying value (an IoU, a mask crop, a resized segmentation)
+# this close to its threshold, or to a tie, may be decided either way by
+# float32 arithmetic of another order (its own error is ~1e-7)
+TARGET_NEAR = 1e-5
+# the anchors' encoded box deltas (continuous targets): rtol, atol
+TARGET_LOC_TOL = (1e-5, 1e-5)
+
+
+def _near_anchors(gt_boxes, priors):
+    """[B, N]: anchors whose target a float32 rounding may change: an IoU
+    with a gt within TARGET_NEAR of 0.4 or 0.5, two gts within TARGET_NEAR
+    of a matched anchor's best, or the anchor within TARGET_NEAR of a gt's
+    best while another anchor also is."""
+    from masklab_tpu_torch.ops.boxes import pairwise_iou
+    gt = gt_boxes.float()
+    iou = pairwise_iou(gt[..., :4], priors.float()) \
+        * (gt[..., 0] != -1.0).float()[..., None]               # [B, G, N]
+    near = (((iou - 0.5).abs() <= TARGET_NEAR)
+            | ((iou - 0.4).abs() <= TARGET_NEAR)).any(1)
+    best = iou.amax(1)
+    near |= (((iou >= best[:, None] - TARGET_NEAR).sum(1) > 1)
+             & (best >= 0.5 - TARGET_NEAR))
+    top = iou >= iou.amax(2, keepdim=True) - TARGET_NEAR
+    return near | (top & (top.sum(2, keepdim=True) > 1)).any(1)
+
+
+def _near_mask_pixels(roi_boxes, gt_boxes, gt_masks, mask_hw, num_classes,
+                      match_iou_threshold=0.5):
+    """[B, R, mh, mw]: mask-target pixels a float32 rounding may change:
+    every pixel of a RoI whose best same-class IoU is within TARGET_NEAR of
+    the threshold or of another gt's, and each pixel whose crop is within
+    TARGET_NEAR of 0.5."""
+    from masklab_tpu_torch.ops.boxes import cxcywh_to_yxyx, pairwise_iou
+    from masklab_tpu_torch.ops.roi_align import crop_and_resize_indexed
+    out = []
+    for rois, gts, masks in zip(roi_boxes.float(), gt_boxes.float(),
+                                gt_masks):
+        iou = (pairwise_iou(gts[:, :4], rois[:, :4])
+               * ((gts[:, None, 5] != -1.0) & (rois[None, :, 5] != -1.0)
+                  & (gts[:, None, 4] == rois[None, :, 4])).float())
+        best = iou.amax(0)
+        near_roi = (((best - match_iou_threshold).abs() <= TARGET_NEAR)
+                    | (((iou >= best - TARGET_NEAR).sum(0) > 1)
+                       & (best >= match_iou_threshold - TARGET_NEAR)))
+        crops = crop_and_resize_indexed(
+            masks[..., None].float(),
+            cxcywh_to_yxyx(rois[:, :4], gt_masks.shape[2:4]),
+            iou.argmax(0), mask_hw)[..., 0]
+        out.append(near_roi[:, None, None]
+                   | ((crops - 0.5).abs() <= TARGET_NEAR))
+    return torch.stack(out)
+
+
+def target_flips(name: str, args: tuple, own, want) -> tuple:
+    """A run's own target ``own`` against the witness's ``want`` (both on
+    the CPU), from the target function's arguments ``args``: -> (entries
+    that differ within TARGET_NEAR of a threshold or a tie, entries that
+    differ elsewhere). Entries are anchors, mask pixels or segmentation
+    pixels."""
+    from masklab_tpu_torch.ops.resize import resize_bilinear
+    args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
+    if name == 'batched_assign_boxes':
+        (cls, loc, mark), (wcls, wloc, wmark) = own, want
+        rtol, atol = TARGET_LOC_TOL
+        loc_off = (loc.double() - wloc).abs() > atol + rtol * wloc.abs()
+        differ = ((cls.double() != wcls).any(-1) | loc_off.any(-1)
+                  | (mark.double() != wmark).any(-1))
+        near = _near_anchors(*args[:2])
+    elif name == 'assign_masks':
+        differ = own != want
+        near = _near_mask_pixels(*args)
+    else:
+        differ = own.double() != want
+        v = resize_bilinear(args[0].float(), args[1].shape[-3],
+                            args[1].shape[-2], align_corners=True)
+        near = ((v - v.floor()) - 0.5).abs() <= TARGET_NEAR
+    return int((differ & near).sum()), int((differ & ~near).sum())
+
+
+@contextlib.contextmanager
+def fixed_decisions(decided=None, dtype=torch.float32, hold=True):
+    """With ``decided`` None (the witness), the step decides, and its
+    answers to STEP_DECISIONS ({function name: answer}, on the CPU) and the
+    signs of the input of every ReLU of a feature map (``torch.relu`` of a
+    4-D tensor; ``'relu'``, in call order) are recorded in the dict
+    yielded. Otherwise, within the block, each REPLAYED_DECISIONS function
+    answers what ``decided`` holds for it, cast to ``dtype`` on the
+    caller's device, and each ReLU of a feature map gates its input by the
+    recorded signs instead of its own; each HELD_TARGETS function computes
+    its own answer, held against the witness's (``target_flips``: with
+    ``hold``, an entry that differs away from a threshold raises; the counts
+    are yielded under ``'held'``), and answers the witness's. A value within
+    float error of a threshold (an IoU at 0.5, a target at 0.5, a near tie
+    of two scores, a ReLU input at 0) is decided one way in one run and the
+    other way in another, and in the check's small maps one such flip moves
+    a gradient far more than float rounding does: every run of the
+    reference check must see the same decisions for its distance from the
+    witness to measure arithmetic. The ReLU that K1 fuses into a ragged
+    GroupNorm stays each run's own (on the card the kernel applies it; its
+    plain version's ``torch.relu`` on [N, Q, C] rows is not a feature
+    map's)."""
+    import importlib
+    record, saved = {'relu': [], 'held': {}}, []
+
+    def cpu(t):
+        return tuple(map(cpu, t)) if isinstance(t, tuple) else t.cpu()
+
+    def like(t, ref):
+        if isinstance(t, tuple):
+            return tuple(like(a, ref) for a in t)
+        t = t.to(ref.device)
+        return t.to(dtype) if t.is_floating_point() else t
+
+    for module_name, fn_name in STEP_DECISIONS:
+        module = importlib.import_module(module_name)
+        original = getattr(module, fn_name)
+        saved.append((module, fn_name, original))
+        held = (module_name, fn_name) in HELD_TARGETS
+
+        def replaced(*args, _fn=original, _name=fn_name, _held=held,
+                     **kwargs):
+            if decided is None:
+                out = _fn(*args, **kwargs)
+                if _name in record:
+                    raise AssertionError(f'{_name} decided twice in a step')
+                record[_name] = cpu(out)
+                return out
+            if _held:
+                near, away = target_flips(_name, args,
+                                          cpu(_fn(*args, **kwargs)),
+                                          decided[_name])
+                record['held'][_name] = dict(near=near, away=away)
+                if hold and away:
+                    raise AssertionError(
+                        f'train reference: {_name} differs from the '
+                        f"witness's at {away} entries away from a threshold "
+                        f'({near} near one)')
+            return like(decided[_name], args[0])
+        setattr(module, fn_name, replaced)
+    relu = torch.relu
+    gates = iter(decided['relu']) if decided is not None else None
+
+    def gated(x):
+        if x.dim() != 4:
+            return relu(x)
+        if gates is None:
+            record['relu'].append((x > 0).cpu())
+            return relu(x)
+        gate = next(gates).to(x.device)
+        if gate.shape != x.shape:
+            raise AssertionError(f'relu gate {tuple(gate.shape)} for a map '
+                                 f'{tuple(x.shape)}')
+        return torch.where(gate, x, torch.zeros_like(x))
+    saved.append((torch, 'relu', relu))
+    torch.relu = gated
+    try:
+        yield record
+        if gates is not None and next(gates, None) is not None:
+            raise AssertionError('fewer relu calls than the recorded run')
+    finally:
+        for module, fn_name, original in saved:
+            setattr(module, fn_name, original)
+
+
+def _train_step_run(mt, cfg, batch, dev: str, float64: bool = False,
+                    decided=None, hold: bool = True):
+    """One train step of ``cfg``'s model (seed 2) on ``dev`` -> ({name: the
     value as a float64 CPU tensor} over the loss terms (``loss:``), every
     gradient (``grad:``, read as the step's first moment (1 - b1) * g, one
     float product), every parameter's change (``change:``), the new
-    batch_stats (``stats:``) and box state (``box:``); and {``change:``
-    name: 2 float32 ulps of the parameter's largest entry}, which the
-    subtraction leaves. ``float64``: parameters, convs and BatchNorm in
-    float64 (the loss terms, the heads' outputs and the GroupNorm statistics
-    stay float32, as the model computes them)."""
+    batch_stats (``stats:``) and box state (``box:``); {``change:`` name: 2
+    float32 ulps of the parameter's largest entry}, which the subtraction
+    leaves; the dict ``fixed_decisions`` yields: the step's discrete
+    decisions, or the held targets' counts). ``float64``: parameters, convs
+    and BatchNorm in float64 (the loss terms, the heads' outputs and the
+    GroupNorm statistics stay float32, as the model computes them).
+    ``decided``, ``hold``: another run's decisions, taken instead of this
+    run's own, and whether its targets are held to them
+    (``fixed_decisions``)."""
     from masklab_tpu_torch import train
     model = mt.build_masklab(cfg, device=dev, seed=2)
     if float64:
@@ -1032,8 +1277,13 @@ def _train_step_run(mt, cfg, batch, dev: str, float64: bool = False):
     start = {k: v.detach().clone() for k, v in model.named_parameters()}
     state = train.TrainState(model, train.rectified_adam(
         train.cyclic_lr(1e-4, 1e-3, 700)))
-    state, metrics = train.make_train_step(model, with_metrics=False)(
-        state, {k: v.to(dev) for k, v in batch.items()})
+    with fixed_decisions(decided, torch.float64 if float64
+                         else torch.float32, hold) as record:
+        state, metrics = train.make_train_step(model, with_metrics=False)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+    if decided is None and len(record) != len(STEP_DECISIONS) + 2:
+        raise AssertionError(f'train reference: decisions {sorted(record)} '
+                             'in one step')
     out = {f'loss:{k}': v for k, v in metrics.items()}
     out.update({f'grad:{k}': v for k, v in state.opt_state.mu.items()})
     out.update({f'change:{k}': v.detach() - start[k]
@@ -1042,20 +1292,23 @@ def _train_step_run(mt, cfg, batch, dev: str, float64: bool = False):
     out.update({f'box:{i}': t for i, t in enumerate(state.box_loss_state)})
     slack = {f'change:{k}': float(2 * np.spacing(np.float32(
         v.abs().max().item()))) for k, v in start.items()}
-    return {k: v.detach().cpu().double() for k, v in out.items()}, slack
+    return ({k: v.detach().cpu().double() for k, v in out.items()}, slack,
+            record)
 
 
-def _witness_readings(got: dict, cpu: dict, exact: dict, slack: dict):
-    """{name: |got - exact| over (TRAIN_REF_RATIO x |cpu - exact| +
-    TRAIN_REF_FLOOR x max|exact| + slack)}, each a largest entry: above 1
-    is outside. ``exact`` is the float64 step, ``cpu`` the float32 step on
-    the CPU, whose own distance from it says how far float32 rounding moves
-    that tensor."""
+def _witness_readings(got: dict, sound: list, exact: dict, slack: dict):
+    """{name: |got - exact| over (TRAIN_REF_RATIO x max over ``sound`` of
+    |run - exact| + TRAIN_REF_FLOOR x max|exact| + slack)}, each a largest
+    entry: above 1 is outside. ``exact`` is the float64 step; ``sound``
+    holds float32 steps on the CPU, whose distances from it say how far
+    float32 rounding moves that tensor in sound runs of other summation
+    orders."""
     out = {}
     for k, w in exact.items():
         err = (got[k] - w).abs().max().item()
-        limit = (TRAIN_REF_RATIO * (cpu[k] - w).abs().max().item()
-                 + TRAIN_REF_FLOOR * w.abs().max().item() + slack.get(k, 0.0))
+        yard = max((run[k] - w).abs().max().item() for run in sound)
+        limit = (TRAIN_REF_RATIO * yard + TRAIN_REF_FLOOR * w.abs().max().item()
+                 + slack.get(k, 0.0))
         out[k] = err / max(limit, 1e-30)
     return out
 
@@ -1080,48 +1333,60 @@ def _reading_summary(readings: dict) -> dict:
 def check_train_reference(mt, rng):
     """One train step of a narrow model on the resnext50 body (heads width
     32, depth 1) at 128 px, batch 2, from the same seeded weights and batch:
-    on the card in float32 (TF32 off), on the CPU in float32, and on the CPU
-    in float64 (the witness). Every tensor of the step (loss terms,
-    gradients, parameter changes, batch_stats, box state) is held to its own
-    scale: the card's distance from the witness within TRAIN_REF_RATIO times
-    the CPU float32 step's own distance plus TRAIN_REF_FLOOR of the tensor's
-    largest entry (``_witness_readings``). Train-mode BatchNorm in float32
-    moves the backbone's gradients far (up to ~20% of a tensor's scale on
-    the CPU), so a fixed tolerance either hides errors or fails sound runs;
-    the CPU's own rounding error of each tensor is the yardstick instead.
-    Two sound readings must pass (the card; the CPU step in one thread,
-    another summation order) and a control must fail: the card's step with
-    TF32 convolutions and matmuls, in the backbone and in the heads."""
+    on the CPU in float64 (the witness), whose loss-NMS proposals and ReLU
+    gates of the feature maps every other run takes, and against whose
+    anchor, mask and segmentation targets every other run's own are held
+    (``fixed_decisions``); on the CPU in
+    float32 with the default thread count and with one thread (two
+    summation orders: the sound runs); on the card in float32 (TF32 off).
+    Every tensor of the step (loss terms, gradients, parameter changes,
+    batch_stats, box state) is held to its own scale: the card's distance
+    from the witness within TRAIN_REF_RATIO times the larger of the sound
+    runs' own distances, plus TRAIN_REF_FLOOR of the tensor's largest entry
+    (``_witness_readings``). Train-mode BatchNorm in float32 moves the
+    backbone's gradients far (up to ~20% of a tensor's scale on the CPU), so
+    a fixed tolerance either hides errors or fails sound runs; the rounding
+    error of sound runs of each tensor is the yardstick instead. The card
+    must pass and a control must fail: the card's step with TF32
+    convolutions and matmuls, in the backbone and in the heads (its targets
+    are not held: TF32 matmuls move the mask crops)."""
     from masklab_tpu_torch import train
     from masklab_tpu_torch.data import make_random_batch
     cfg = narrow(train_config(mt))
     cfg.compute.compute_dtype = 'float32'
     batch = train.as_batch(make_random_batch(
         2, (128, 128), 4, seed=int(rng.randint(1 << 30))), 'cpu')
-    exact, slack = _train_step_run(mt, cfg, batch, 'cpu', float64=True)
-    cpu, _ = _train_step_run(mt, cfg, batch, 'cpu')
-    runs = dict(card=_train_step_run(mt, cfg, batch, DEVICE)[0])
+    exact, slack, decided = _train_step_run(mt, cfg, batch, 'cpu',
+                                            float64=True)
+
+    held = {}
+
+    def run(name, dev, hold=True):
+        got, _, record = _train_step_run(mt, cfg, batch, dev,
+                                         decided=decided, hold=hold)
+        held[name] = record['held']
+        return got
+    sound = [run('cpu', 'cpu')]
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        runs['cpu_one_thread'] = _train_step_run(mt, cfg, batch, 'cpu')[0]
+        sound.append(run('cpu_1_thread', 'cpu'))
     finally:
         torch.set_num_threads(threads)
+    runs = dict(card=run('card', DEVICE))
     torch.backends.cudnn.allow_tf32 = True
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        runs['control_card_tf32'] = _train_step_run(mt, cfg, batch,
-                                                     DEVICE)[0]
+        runs['control_card_tf32'] = run('control_card_tf32', DEVICE,
+                                        hold=False)
     finally:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    out = {name: _reading_summary(_witness_readings(run, cpu, exact, slack))
-           for name, run in runs.items()}
-    for name in ('card', 'cpu_one_thread'):
-        bad = {g: v for g, v in out[name].items() if not v['max'] <= 1.0}
-        if bad:
-            raise AssertionError(f'train reference: {name} outside '
-                                 f'tolerance {bad}')
+    out = {name: _reading_summary(_witness_readings(r, sound, exact, slack))
+           for name, r in runs.items()}
+    bad = {g: v for g, v in out['card'].items() if not v['max'] <= 1.0}
+    if bad:
+        raise AssertionError(f'train reference: card outside tolerance {bad}')
     control = out['control_card_tf32']
     for group in ('grad_backbone', 'grad_heads'):
         if not control[group]['max'] > 1.0:
@@ -1129,23 +1394,30 @@ def check_train_reference(mt, rng):
                                  f'step in {group}: {control[group]}')
     out['losses'] = {k[5:]: v.item() for k, v in exact.items()
                      if k.startswith('loss:')}
+    out['proposals'] = int(
+        (decided['batched_class_aware_nms'][..., 4] >= 0).sum())
+    out['held_targets'] = held
     return out
 
 
 def reference_draws(mt, n: int) -> list:
     """``check_train_reference`` at the batch seeds of RandomState(0) ..
-    RandomState(n - 1): each draw's verdict and its largest reading of
-    each group (the card's; the failing run's where one failed)."""
+    RandomState(n - 1): each draw's verdict and the largest reading of each
+    group, the card's and the TF32 control's (the failing check's message
+    where one failed)."""
     out = []
     for seed in range(n):
         try:
             readings = check_train_reference(mt, np.random.RandomState(seed))
             verdict = 'pass'
-            worst = {g: v['max'] for g, v in readings['card'].items()}
+            worst = {run: {g: v['max'] for g, v in readings[run].items()}
+                     for run in ('card', 'control_card_tf32')}
+            worst['held_targets'] = readings['held_targets']
         except AssertionError as e:
             verdict, worst = 'fail', str(e)
         out.append(dict(seed=seed, verdict=verdict, readings=worst))
-        print(f'reference draw {seed}: {verdict} {worst}', flush=True)
+        print(f'reference draw {seed}: {verdict} {json.dumps(worst)}',
+              flush=True)
     return out
 
 
@@ -1326,8 +1598,8 @@ def trainer_probe(kc):
         return out, (time.perf_counter() - start) * 1e3
 
     def train_step(orig):
-        def make(model, with_metrics=True):
-            step = orig(model, with_metrics)
+        def make(model, with_metrics=True, **kwargs):
+            step = orig(model, with_metrics, **kwargs)
 
             def run(state, batch):
                 before = kc.launch_counts()
@@ -1917,6 +2189,597 @@ def serve_deployment(mt, kc, rng, name, cfg, batch, extra=None):
     return paths, more
 
 
+# ---- phase 8: the CLI's default deployment, exported, served, reloaded ----
+
+# ModelConfiguration() as it stands: resnet50, widths 128, depth 4, float32,
+# the predictor's 540x960 resolution; clients send 1080p frames
+DEPLOY_FRAME = (1080, 1920)
+DEPLOY_CLIENTS, DEPLOY_ROUNDS = 16, 3
+PROCESS_FRAMES, PROCESS_BATCH = 16, 8
+# the micro-batcher's largest batch, at which K2's row is held
+DEPLOY_MAX_BATCH = 16
+# the analytics rows' tolerance of check_postprocess: (columns, rtol), atol
+# 1e-3; the other columns (class, box, confidence, flag) exact
+TABLE_RTOL = {'pixelSize': 1e-6, 'estimatedSize': 5e-4,
+              'estimatedHorizontalLength': 5e-4,
+              'estimatedVerticalLength': 5e-4}
+
+
+def deploy_frames(n: int, seed: int) -> list:
+    """``n`` 1080x1920 RGB frames (seeded noise on a smooth ramp) and their
+    JPEG bytes, as a camera client would send them."""
+    import cv2
+    rng = np.random.RandomState(seed)
+    h, w = DEPLOY_FRAME
+    ramp = np.linspace(0, 160, w, dtype=np.float32)[None, :, None]
+    out = []
+    for _ in range(n):
+        img = np.clip(ramp + rng.randint(0, 96, (h, w, 3)), 0, 255).astype(
+            np.uint8)
+        ok, jpeg = cv2.imencode('.jpg', img[..., ::-1])
+        if not ok:
+            raise AssertionError('deployment: jpeg encode failed')
+        out.append(jpeg.tobytes())
+    return out
+
+
+def records_close(got: list, want: list) -> int:
+    """Analytics records (``summary_to_records``) held to the table
+    tolerance; -> the count of records compared."""
+    if len(got) != len(want):
+        raise AssertionError(f'{len(got)} records, want {len(want)}')
+    for a, b in zip(got, want):
+        for k, v in b.items():
+            if k in TABLE_RTOL:
+                if not abs(a[k] - v) <= 1e-3 + TABLE_RTOL[k] * abs(v):
+                    raise AssertionError(f'record {k}: {a[k]} vs {v}')
+            elif a[k] != v:
+                raise AssertionError(f'record {k}: {a[k]} vs {v}')
+    return len(want)
+
+
+def records_gap(got: list, want: list) -> dict:
+    """How far two lists of analytics records are apart: the counts, the
+    records whose non-numeric fields differ, and each numeric field's
+    largest absolute difference over records at the same place."""
+    out = dict(n=len(got), n_want=len(want), other_fields=0)
+    for a, b in zip(got, want):
+        for k, v in b.items():
+            if isinstance(v, float):
+                out[k] = max(out.get(k, 0.0), abs(a[k] - v))
+            elif a[k] != v:
+                out['other_fields'] += 1
+    return out
+
+
+def http_predict(port: int, body: bytes, query: str = '') -> dict:
+    import urllib.request
+    req = urllib.request.Request(f'http://localhost:{port}/predict{query}',
+                                 data=body, method='POST')
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())
+
+
+def http_json(port: int, path: str, method: str = 'GET') -> dict:
+    import urllib.request
+    req = urllib.request.Request(f'http://localhost:{port}{path}',
+                                 data=b'' if method == 'POST' else None,
+                                 method=method)
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def save_deploy_checkpoint(mt, cfg, save_dir: str, seed: int,
+                           loss: float) -> str:
+    """A checkpoint of the deployment's model with seeded, forced-dense
+    weights, built and saved on the CPU (so the card holds only what the
+    server holds), through train/checkpoints.py; -> its path."""
+    from masklab_tpu_torch import train
+    from masklab_tpu_torch.train.checkpoints import CheckpointManager
+    model = mt.force_dense(mt.build_masklab(cfg, device='cpu', seed=seed))
+    state = train.TrainState(model, train.rectified_adam(1e-3))
+    return CheckpointManager(save_dir, None).save_epoch(state, loss, 0)
+
+
+def reference_predictor(mt, cfg, path: str):
+    """A predictor built directly on one checkpoint, on the card."""
+    from masklab_tpu_torch.train.checkpoints import (CheckpointManager,
+                                                     load_variables)
+    model = load_variables(mt.MaskLab(cfg), CheckpointManager(
+        os.path.dirname(path), None).restore_variables(path))
+    return mt.MaskLabPredictor(model, cfg, visualization=True, device=DEVICE)
+
+
+def concurrent_round(port: int, bodies: list, query: str = '') -> list:
+    """One request per body from its own client thread, released together:
+    -> [(latency s, answer or the exception)]."""
+    barrier = threading.Barrier(len(bodies))
+    out = [None] * len(bodies)
+
+    def client(i):
+        barrier.wait()
+        start = time.perf_counter()
+        try:
+            ans = http_predict(port, bodies[i], query)
+        except Exception as exc:  # noqa: BLE001 - reported by the caller
+            ans = exc
+        out[i] = (time.perf_counter() - start, ans)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(bodies))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    return out
+
+
+def check_visualize_answer(ans) -> None:
+    import base64
+    import cv2
+    if isinstance(ans, Exception):
+        raise AssertionError(f'deployment: a request failed: {ans!r}')
+    frame = cv2.imdecode(np.frombuffer(base64.b64decode(
+        ans['visualize_jpeg_b64']), np.uint8), 1)
+    if frame.shape != DEPLOY_FRAME + (3,) or not ans['objs']:
+        raise AssertionError('deployment: a malformed visualize answer')
+
+
+def flip_under_load(port: int, bodies: list, write_b) -> dict:
+    """Clients keep sending (summarize) while checkpoint B is written and
+    POST /reload is called: no request may fail. -> the timeline: B's
+    rename, the reload's answer, and the first answer of a request sent
+    after the reload answered (which B must have served: the model was
+    swapped before /reload answered)."""
+    stop = threading.Event()
+    log, lock = [], threading.Lock()
+
+    def client(i):
+        while not stop.is_set():
+            start = time.perf_counter()
+            try:
+                ans = http_predict(port, bodies[i % len(bodies)],
+                                   '?outputs=summarize')
+            except Exception as exc:  # noqa: BLE001 - reported below
+                ans = exc
+            with lock:
+                log.append((start, time.perf_counter(), ans))
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(DEPLOY_CLIENTS)]
+    for th in threads:
+        th.start()
+    try:
+        time.sleep(1.0)
+        path = write_b()
+        renamed = time.perf_counter()
+        reload = http_json(port, '/reload', 'POST')
+        reloaded = time.perf_counter()
+        deadline = time.time() + 120
+        while time.time() < deadline:
+            with lock:
+                after = sum(1 for s, _, _ in log if s >= reloaded)
+            if after >= DEPLOY_CLIENTS:
+                break
+            time.sleep(0.05)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=300)
+    failed = [a for _, _, a in log if isinstance(a, Exception)]
+    if failed:
+        raise AssertionError(f'deployment: {len(failed)} of {len(log)} '
+                             f'requests failed during the flip: {failed[0]!r}')
+    first_b = min(e for s, e, _ in log if s >= reloaded)
+    return dict(path=path, reload=reload, requests=len(log),
+                reload_ms=(reloaded - renamed) * 1e3,
+                swap_ms=(first_b - renamed) * 1e3)
+
+
+def default_deployment(mt, kc) -> dict:
+    """The CLI's default deployment end to end on the card, full width:
+    checkpoint A (seeded, forced dense) written by train/checkpoints.py,
+    ``cli export --dest`` to a bundle, the CLI's ``serve`` (``build_server``,
+    the watcher on, micro-batch 16, warmed at 1080x1920) on a free port, 16
+    concurrent HTTP clients with 1080p JPEG frames for DEPLOY_ROUNDS
+    counted rounds (default mode: visualize), kernel launches counted from
+    0 just before them, and one b16 request traced by stage; then
+    checkpoint B (another seed, a better loss)
+    written into the bundle under load and POST /reload: model_version
+    flips to B, no request fails, and sequential summarize answers equal a
+    predictor built directly on B (the same batch of 1); then ``cli
+    process --batch=8`` over PROCESS_FRAMES frames, each file and record
+    equal to that predictor's answer for its frame in the same batches, and
+    each record's class, box, confidence and flag equal to its answer for
+    the frame alone (the mask-counted columns' gaps and the equal files
+    reported); K1 against its plain version at every map of a b16 forward;
+    peak memory serving A and during the swap."""
+    import tempfile
+    import cv2
+    from masklab_tpu_torch import cli
+    from masklab_tpu_torch.ops import nms
+    from masklab_tpu_torch.serving import server as server_module
+    from masklab_tpu_torch.serving.predictor import summary_to_records
+    cfg = mt.ModelConfiguration()
+    labels = cfg.dataset.instance_labels
+    bodies = deploy_frames(PROCESS_FRAMES, seed=21)
+    out = dict(config='resnet50, widths 128, depth 4, float32, 540x960 '
+               'model input, 1080x1920 JPEG frames')
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_dir = os.path.join(tmp, 'run')
+        t0 = time.perf_counter()
+        from masklab_tpu_torch.train.checkpoints import CheckpointManager
+        CheckpointManager(save_dir, cfg)           # writes config.json
+        a = save_deploy_checkpoint(mt, cfg, save_dir, seed=11, loss=0.9)
+        out['checkpoint_s'] = time.perf_counter() - t0
+        dest = os.path.join(tmp, 'bundles')
+        cli.main(['export', save_dir, f'--dest={dest}'])
+        bundle = os.path.join(dest, '1')
+        a = os.path.join(bundle, os.path.basename(a))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = cli.build_server([
+            '--port=0', f'--max-batch={DEPLOY_MAX_BATCH}',
+            f'--warmup-sizes={DEPLOY_FRAME[0]}x{DEPLOY_FRAME[1]}',
+            f'--device={DEVICE}', '-train.save_dir', bundle])
+        out['server_build_s'] = time.perf_counter() - t0
+        server.start()
+        try:
+            port = server.port
+            if http_json(port, '/healthz') != {'status': 'ok',
+                                               'model_version': None}:
+                raise AssertionError('deployment: /healthz before a reload')
+            first = http_json(port, '/reload', 'POST')
+            if first != {'reloaded': True, 'model_version': a}:
+                raise AssertionError(f'deployment: reload of A: {first}')
+            predictor = server.watcher.predictor
+            model = predictor.model
+            finite = []
+            hook = model.register_forward_hook(
+                lambda m, args, o: finite.append(torch.stack(
+                    [torch.isfinite(o[k]).all() for k in
+                     ('cls_pred', 'loc_pred', 'seg_pred', 'roi_masks')])))
+            for ans in concurrent_round(port, bodies):      # warm-up round
+                check_visualize_answer(ans[1])
+            finite.clear()
+            batches_before = len(server.batcher.batch_sizes)
+            torch.cuda.synchronize()
+            kc.reset_launch_counts()
+            nms.pool_fallbacks = 0
+            start = time.perf_counter()
+            latencies = []
+            for _ in range(DEPLOY_ROUNDS):
+                for lat, ans in concurrent_round(port, bodies):
+                    check_visualize_answer(ans)
+                    latencies.append(lat)
+            wall = time.perf_counter() - start
+            counts = kc.launch_counts()
+            fallbacks = nms.pool_fallbacks
+            hook.remove()
+            sizes = list(server.batcher.batch_sizes)[batches_before:]
+            forwards = len(finite)
+            if forwards != len(sizes) or not torch.stack(finite).all():
+                raise AssertionError(f'deployment: {forwards} forwards for '
+                                     f'{len(sizes)} batches, or non-finite '
+                                     'outputs')
+            for name, per in PER_FORWARD.items():
+                if counts[name] < per * forwards:
+                    raise AssertionError(f'deployment: {name} launched '
+                                         f'{counts[name]} times in '
+                                         f'{forwards} forwards')
+            lat_ms = sorted(t * 1e3 for t in latencies)
+            out.update(clients=DEPLOY_CLIENTS, rounds=DEPLOY_ROUNDS,
+                       img_per_s=len(latencies) / wall,
+                       p50_ms=statistics.median(lat_ms),
+                       p99_ms=float(np.percentile(lat_ms, 99)),
+                       batch_sizes=sizes, forwards=forwards,
+                       launches=counts, pool_fallbacks=fallbacks,
+                       peak_memory_bytes=torch.cuda.max_memory_allocated())
+            print(f'deployment: {out["config"]}; {DEPLOY_CLIENTS} HTTP '
+                  f'clients x {DEPLOY_ROUNDS} rounds: '
+                  f'{out["img_per_s"]:.2f} img/s, p50 {out["p50_ms"]:.2f} '
+                  f'ms, p99 {out["p99_ms"]:.2f} ms, batch sizes {sizes}, '
+                  f'launches {json.dumps(counts)}, pool fallbacks '
+                  f'{fallbacks}, peak memory '
+                  f'{out["peak_memory_bytes"] / 2**30:.2f} GiB', flush=True)
+            # one request of a full batch (16 decoded frames, visualize)
+            # through the same predictor, traced and split by stage
+            stack = np.stack([np.ascontiguousarray(cv2.imdecode(
+                np.frombuffer(b, np.uint8), 1)[..., ::-1])
+                for b in bodies[:DEPLOY_MAX_BATCH]])
+            traced_request = stage_profile(
+                lambda: predictor.predict(stack, 'visualize'))
+            out.update(stages=traced_request['stages'],
+                       traced_ms=traced_request['traced_ms'],
+                       device_busy_share=traced_request['device_busy_share'],
+                       top_device_ms=traced_request['top_device_ms'])
+            print(f'stages deployment: {json.dumps(out["stages"])}, traced '
+                  f'{out["traced_ms"]:.2f} ms, busy share '
+                  f'{out["device_busy_share"]:.3f}, top device ops '
+                  f'{json.dumps(out["top_device_ms"])}', flush=True)
+            # K1 against its plain version at every map this path gives it
+            with recorded_k1_maps() as maps:
+                predictor.predict(stack, 'visualize')
+            k1 = k1_at_maps(kc, np.random.RandomState(14), maps)
+            out.update(k1_maps=sorted({m[:4] + (m[5],) for m in maps}),
+                       k1_calls=len(maps), k1_cases=len(k1),
+                       k1_max_abs_err=max(c['err'] for c in k1),
+                       k1_max_abs_err_vs_f64=max(c['exact_err'] for c in k1))
+            print(f'deployment K1: {len(maps)} ragged GroupNorms in a b16 '
+                  f'forward, {len(out["k1_maps"])} maps (n, Q, C, G, relu) '
+                  f'{json.dumps(out["k1_maps"])}; each held against the '
+                  f'plain version in float32, relu off / on: max abs err '
+                  f'{out["k1_max_abs_err"]:.3e} (vs f64 '
+                  f'{out["k1_max_abs_err_vs_f64"]:.3e})', flush=True)
+            probe = [http_predict(port, b, '?outputs=summarize')['objs']
+                     for b in bodies[:4]]
+            torch.cuda.reset_peak_memory_stats()
+            flip = flip_under_load(port, bodies, lambda: (
+                save_deploy_checkpoint(mt, cfg, bundle, seed=12, loss=0.5)))
+            out['swap_peak_memory_bytes'] = torch.cuda.max_memory_allocated()
+            b = flip['path']
+            health = http_json(port, '/healthz')
+            if flip['reload']['model_version'] != b \
+                    or health['model_version'] != b:
+                raise AssertionError(f'deployment: model_version did not '
+                                     f'flip to B: {flip["reload"]}, {health}')
+            ref_b = reference_predictor(mt, cfg, b)
+            compared = 0
+            for i, body in enumerate(bodies):
+                got = http_predict(port, body, '?outputs=summarize')['objs']
+                rgb = cv2.imdecode(np.frombuffer(body, np.uint8), 1)[..., ::-1]
+                want = summary_to_records(
+                    ref_b.predict(np.ascontiguousarray(rgb),
+                                  'summarize')['summarize'][0], labels)
+                compared += records_close(got, want)
+                if i < len(probe) and got == probe[i]:
+                    raise AssertionError('deployment: B answers as A did')
+            out.update(flip_requests=flip['requests'],
+                       reload_ms=flip['reload_ms'], swap_ms=flip['swap_ms'],
+                       b_records_compared=compared)
+            print(f'deployment reload: model_version -> '
+                  f'{os.path.basename(b)}, {flip["requests"]} requests '
+                  f'under load, none failed; reload answered '
+                  f'{flip["reload_ms"]:.2f} ms after the rename, B\'s '
+                  f'first answer at most {flip["swap_ms"]:.2f} ms after it '
+                  '(the first answer to a request sent after the reload '
+                  'answered); '
+                  f'{compared} records of {len(bodies)} frames equal to a '
+                  f'predictor on B; peak memory during the swap '
+                  f'{out["swap_peak_memory_bytes"] / 2**30:.2f} GiB',
+                  flush=True)
+        finally:
+            server.stop()
+        del server, predictor, model
+        torch.cuda.empty_cache()
+        src, dst = os.path.join(tmp, 'src'), os.path.join(tmp, 'dst')
+        os.makedirs(src)
+        for i, body in enumerate(bodies):
+            with open(os.path.join(src, f'frame_{i:02d}.jpg'), 'wb') as f:
+                f.write(body)
+        folder_s = []
+        inner = server_module.process_folder
+
+        def timed(*args, **kwargs):
+            start = time.perf_counter()
+            result = inner(*args, **kwargs)
+            folder_s.append(time.perf_counter() - start)
+            return result
+        server_module.process_folder = timed
+        try:
+            cli.main(['process', src, dst, f'--batch={PROCESS_BATCH}',
+                      f'-train.save_dir={bundle}', f'--device={DEVICE}'])
+        finally:
+            server_module.process_folder = inner
+        with open(os.path.join(dst, 'results.json')) as f:
+            results = json.load(f)
+        # the predictor's own answer for each image, from the same stacked
+        # calls process_folder makes (PROCESS_BATCH frames of one size, in
+        # name order): the files must equal it exactly. Against one frame a
+        # call (another batch size, so other convolution algorithms), the
+        # records' classes, boxes, confidences and flags must be equal too;
+        # the forced-dense random masks sit near 0.5, where float noise
+        # flips pixels, so the columns counted from the masks (TABLE_RTOL's)
+        # and the annotated files are reported, not held
+        rgbs = [np.ascontiguousarray(cv2.imdecode(np.frombuffer(
+            b, np.uint8), 1)[..., ::-1]) for b in bodies]
+        same_batch, single, gaps = {}, 0, []
+        for lo in range(0, len(rgbs), PROCESS_BATCH):
+            want = ref_b.predict(np.stack(rgbs[lo:lo + PROCESS_BATCH]))
+            for j in range(len(rgbs[lo:lo + PROCESS_BATCH])):
+                same_batch[lo + j] = (
+                    mt.MaskLabPredictor.encode_jpeg(want['visualize'][j]),
+                    summary_to_records(want['summarize'][j], labels))
+        for i, rgb in enumerate(rgbs):
+            name = f'frame_{i:02d}.jpg'
+            with open(os.path.join(dst, name), 'rb') as f:
+                written = f.read()
+            jpeg, records = same_batch[i]
+            if written != jpeg or results[name]['objs'] != records:
+                raise AssertionError(f'process: {name} differs from the '
+                                     "predictor's answer for it")
+            alone = ref_b.predict(rgb)
+            single += written == mt.MaskLabPredictor.encode_jpeg(
+                alone['visualize'][0])
+            one = summary_to_records(alone['summarize'][0], labels)
+            records_close(results[name]['objs'], [
+                {k: v for k, v in r.items() if k not in TABLE_RTOL}
+                for r in one])
+            gaps.append(records_gap(results[name]['objs'], one))
+        mask_gaps = {k: max(g[k] for g in gaps) for k in TABLE_RTOL}
+        out.update(process_img_per_s=PROCESS_FRAMES / folder_s[0],
+                   process_files_equal=len(rgbs),
+                   process_files_equal_to_batch_1=single,
+                   process_mask_column_gaps_to_batch_1=mask_gaps)
+        print(f'process: {PROCESS_FRAMES} frames at --batch={PROCESS_BATCH}, '
+              f'{out["process_img_per_s"]:.2f} img/s; every file and record '
+              "equal to the predictor's answer in the same batches; against "
+              'one frame a call, every class, box, confidence and flag '
+              f'equal, {single} of {PROCESS_FRAMES} files equal, the mask '
+              f'columns apart by at most {json.dumps(mask_gaps)}', flush=True)
+        del ref_b
+        torch.cuda.empty_cache()
+    return out
+
+
+def k2_at_deployment(mt, kc) -> dict:
+    """K2 at the default deployment's row: [16, 5, 163275], the transpose
+    of [B, N, C] scores (the anchors of ModelConfiguration() at 540x960),
+    exact against the plain version; cold device ms (L2 flushed first)
+    beside its bound. Its scores come from their own generator."""
+    cfg = mt.ModelConfiguration()
+    h, w = cfg.postprocess.resolution
+    n = len(mt.generate_priors(h, w, mt.priors_from_config(cfg)))
+    b, c, cap, m = DEPLOY_MAX_BATCH, 5, 16, 128
+    scores = k2_scores(np.random.RandomState(8), b, c, n)
+    got = kc.segment_topk_rows(scores, cap)
+    want = kc.segment_topk_rows_plain(scores, cap)
+    if not all(torch.equal(g, v) for g, v in zip(got, want)):
+        raise AssertionError('segment_topk differs from plain at the '
+                             "default deployment's row")
+    flush = l2_flush()
+    s = -(-n // m)
+    return dict(shape=f'[{b}, {c}, {n}] f32 (transposed [B, N, C]), cap '
+                f'{cap}', anchors=n,
+                device_ms=device_ms(lambda: (flush(), kc.segment_topk_rows(
+                    scores, cap)), 200, 'segment_topk'),
+                bound_ms=bound_ms(b * c * n * 4 + 2 * b * c * cap * s * 4,
+                                  b * c * n)[0])
+
+
+# ---- phase 9: the rest of the backbone zoo ----
+
+NEW_BACKBONES = ('mobilenetv2', 'resnet50', 'resnet50v2', 'resnet101v2',
+                 'seresnet50', 'seresnext50', 'vgg16', 'efficientnetb2',
+                 'efficientnetb3', 'efficientnetb4')
+BACKBONE_OUTPUTS = ('C1', 'C2', 'C3', 'C4', 'C5', 'P6', 'P7')
+BACKBONE_RTOL = 1e-4
+
+
+def check_backbones(mt) -> dict:
+    """Each backbone the port gained in this slice through
+    ``BackboneNetwork`` at full width (extras 128), 512x512, batch 2,
+    float32 (TF32 off) on the card against the same module on the CPU:
+    every endpoint within BACKBONE_RTOL of its map's largest magnitude.
+    Then the device time of one bf16 forward (weights cast once), by CUDA
+    events over 5 calls after 2."""
+    from masklab_tpu_torch.nn.backbone import BackboneNetwork
+    from masklab_tpu_torch.nn.layers import hold_compute_dtype
+    images = torch.from_numpy((np.random.RandomState(9).rand(
+        2, SIZE, SIZE, 3) * 255).astype(np.float32))
+    out = {}
+    for name in NEW_BACKBONES:
+        cpu = mt.init_weights(BackboneNetwork(name, BACKBONE_OUTPUTS, 128),
+                              seed=3).eval()
+        with torch.inference_mode():
+            want = cpu(images)
+            card = BackboneNetwork(name, BACKBONE_OUTPUTS, 128)
+            card.load_state_dict(cpu.state_dict())
+            got = card.to(DEVICE).eval()(images.to(DEVICE))
+        errs = {k: ((got[k].cpu() - want[k]).abs().max()
+                    / want[k].abs().max()).item() for k in BACKBONE_OUTPUTS}
+        worst = max(errs, key=errs.get)
+        if not errs[worst] <= BACKBONE_RTOL:
+            raise AssertionError(f'backbone {name}: {worst} off by '
+                                 f'{errs[worst]} of its scale')
+        del card, got
+        fast = BackboneNetwork(name, BACKBONE_OUTPUTS, 128,
+                               dtype=torch.bfloat16)
+        fast.load_state_dict(cpu.state_dict())
+        fast = hold_compute_dtype(fast.to(DEVICE).eval())
+        x = images.to(DEVICE)
+        with torch.inference_mode():
+            ms = time_ms(lambda: fast(x), 5, warmup=2)
+        out[name] = dict(max_rel_err=errs[worst], at=worst,
+                         bf16_forward_ms=ms,
+                         endpoints={k: list(want[k].shape[1:])
+                                    for k in BACKBONE_OUTPUTS})
+        print(f'backbone {name}: every endpoint within {errs[worst]:.2e} of '
+              f'its scale ({worst}), card vs CPU, f32 512 px b2; bf16 '
+              f'forward {ms:.2f} ms', flush=True)
+        del fast, cpu
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- phase 10: the separable heads ----
+
+def separable_config(mt):
+    """The default deployment with separable heads in detection, instance
+    and semantic. The separable segmentation head adds its input (the ASPP
+    output beside the skip projection) to its output, as the reference's
+    does, so num_aspp_features + num_skip_features = num_features: 96 +
+    32 = 128."""
+    cfg = mt.ModelConfiguration()
+    for group in (cfg.detection, cfg.instance, cfg.semantic):
+        group.use_separable_conv = True
+    sem = cfg.semantic
+    sem.num_aspp_features = sem.num_features - sem.num_skip_features
+    return cfg
+
+
+def check_separable(mt, kc) -> dict:
+    """Card vs CPU of the narrow separable model as ``check_reference``
+    holds the others (512 px, float32, forced dense; its images from a
+    generator of its own, so the later phases keep their inputs); one
+    summarize
+    request at full width (1080p frame, float32), recording the maps K1
+    gets; K1 held against its plain version at [100, 196, 512] (G=16:
+    ragged) and at every map the request gave it (``k1_at_maps``), and
+    timed at [100, 196, 512] bf16 relu."""
+    narrow_cfg = narrow(separable_config(mt))
+    narrow_cfg.semantic.num_skip_features = 16
+    narrow_cfg.semantic.num_aspp_features = 16
+    narrow_cfg.compute.compute_dtype = 'float32'
+    out = dict(reference=check_reference(mt, np.random.RandomState(12),
+                                         narrow_cfg))
+    print(f'separable reference: {json.dumps(out["reference"])}', flush=True)
+    cfg = separable_config(mt)
+    model = mt.force_dense(mt.build_masklab(cfg, device=DEVICE, seed=5))
+    predictor = mt.MaskLabPredictor(model, cfg, device=DEVICE)
+    import cv2
+    body = deploy_frames(1, seed=31)[0]
+    rgb = np.ascontiguousarray(cv2.imdecode(np.frombuffer(
+        body, np.uint8), 1)[..., ::-1])
+    predictor.predict(rgb, 'summarize')             # warm-up
+    torch.cuda.synchronize()
+    kc.reset_launch_counts()
+    with recorded_k1_maps() as maps:
+        start = time.perf_counter()
+        res = predictor.predict(rgb, 'summarize')
+        ms = (time.perf_counter() - start) * 1e3
+    counts = kc.launch_counts()
+    check_rows = res['summarize']
+    if check_rows.shape != (1, cfg.detection.nms_max_output_size + 1, 11) \
+            or not np.isfinite(check_rows).all():
+        raise AssertionError('separable: a malformed summarize answer')
+    if counts['band_groupnorm'] != len(maps) or not maps:
+        raise AssertionError(f'separable: {counts} for {len(maps)} ragged '
+                             'GroupNorms')
+    cases = (k1_cases(kc, np.random.RandomState(10), [(100, 196, 512)])
+             + k1_at_maps(kc, np.random.RandomState(13), maps))
+    xb = torch.from_numpy(np.random.RandomState(11).randn(
+        100, 196, 512).astype(np.float32)).to(DEVICE).bfloat16()
+    scale = torch.ones(512, device=DEVICE)
+    bias = torch.zeros(512, device=DEVICE)
+    out.update(summarize_ms=ms, launches=counts,
+               k1_maps=sorted({m[:4] + (m[5],) for m in maps}),
+               k1_cases=cases,
+               k1_device_ms_100_196_512=device_ms(
+                   lambda: kc.band_groupnorm(xb, scale, bias, 16,
+                                             fuse_relu=True),
+                   200, 'band_groupnorm'))
+    print(f'separable: full width summarize {ms:.2f} ms (1080p frame), '
+          f'launches {json.dumps(counts)}; K1 held against its plain '
+          f'version at [100, 196, 512] G=16 (f32 / bf16) and at each of the '
+          f'request\'s {len(out["k1_maps"])} maps (n, Q, C, G, relu) '
+          f'{json.dumps(out["k1_maps"])} in its dtype, relu off / on; '
+          '[100, 196, 512] bf16 relu '
+          f'{out["k1_device_ms_100_196_512"]:.4f} ms', flush=True)
+    del model, predictor
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernels-only', action='store_true',
@@ -1928,6 +2791,9 @@ def main() -> int:
     parser.add_argument('--trainer-only', action='store_true',
                         help='card, build, K2 at the main path and the '
                         "trainer's row lengths, and the trainer phase only")
+    parser.add_argument('--deploy-only', action='store_true',
+                        help="card, build, K2 at the default deployment's "
+                        'row, and phases 8-10 only')
     parser.add_argument('--reference-draws', type=int, default=0,
                         metavar='N', help='card, build and '
                         'check_train_reference at the batch seeds of '
@@ -1962,6 +2828,9 @@ def main() -> int:
     if args.reference_draws:
         finish(card, {'reference_draws': reference_draws(
             mt, args.reference_draws)})
+        return 0
+    if args.deploy_only:
+        finish(card, run_deployment(mt, kc))
         return 0
     if args.trainer_only:
         k2 = check_k2(kc, rng, False)
@@ -2026,10 +2895,12 @@ def main() -> int:
                                        trained.pop('k1_backward_shapes'))
     print(f'kernel band_groupnorm_backward at the train maps: '
           f'{json.dumps(k1b["train_maps"])}', flush=True)
+    deployed = run_deployment(mt, kc)
     trainer = run_trainer(mt, kc, rng)
     paths = dict(serve, train=trained, trainer=dict(
         launches={k: sum(c[k] for c in trainer['launches_per_step'])
-                  for k in TRAINER_KERNELS}))
+                  for k in TRAINER_KERNELS}),
+        deployment=deployed['deployment'], separable=deployed['separable'])
     for k in kernels:
         k['launches_by_path'] = {p: v['launches'][k['name']]
                                  for p, v in paths.items()}
@@ -2039,8 +2910,12 @@ def main() -> int:
         if k['name'] == 'segment_topk':
             k['pool_fallbacks'] = {p: v['pool_fallbacks']
                                    for p, v in serve.items()}
+            k['deployment'] = deployed['k2']
+    deployed.pop('k2')
+    print(f'total: {time.perf_counter() - STARTED:.1f} s', flush=True)
     finish(card, {'kernels': kernels, 'serve': serve, 'train': trained,
-                  'trainer': trainer, 'reference': reference, **more})
+                  'trainer': trainer, 'reference': reference, **deployed,
+                  **more})
     return 0
 
 
@@ -2092,6 +2967,20 @@ def run_trainer(mt, kc, rng) -> dict:
     print(f'kernel band_groupnorm_backward at the trainer maps: '
           f'{json.dumps(trained["k1_backward_maps"])}', flush=True)
     return trained
+
+
+def run_deployment(mt, kc) -> dict:
+    """Phases 8-10, their lines printed: K2 at the default deployment's
+    row, the deployment itself, the backbones, the separable heads."""
+    k2 = k2_at_deployment(mt, kc)
+    print(f'kernel segment_topk at the default deployment: {k2["shape"]} '
+          f'({k2["anchors"]} anchors) exact, cold {k2["device_ms"]:.5f} ms '
+          f'(bound {k2["bound_ms"]:.5f})', flush=True)
+    out = dict(k2=k2)
+    out['deployment'] = default_deployment(mt, kc)
+    out['backbones'] = check_backbones(mt)
+    out['separable'] = check_separable(mt, kc)
+    return out
 
 
 def finish(card: str, result: dict) -> None:

@@ -1,15 +1,21 @@
 """Command-line entry points of the port.
 
 The counterpart of ``masklab_tpu/cli.py``:
-  * ``etl``   — process a labelled dataset (``data.process_dataset``);
-  * ``train`` — config overrides via -group.attr flags, the 3-phase
+  * ``etl``     — process a labelled dataset (``data.process_dataset``);
+  * ``train``   — config overrides via -group.attr flags, the 3-phase
     trainer, then the mIoU eval of its best checkpoint;
-  * ``eval``  — the mIoU eval alone, of the best checkpoint in
-    ``-train.save_dir``, with the model rebuilt from its config.json.
+  * ``eval``    — the mIoU eval alone, of the best checkpoint in
+    ``-train.save_dir``, with the model rebuilt from its config.json;
+  * ``serve``   — the predictor of ``-train.save_dir`` over HTTP, with
+    micro-batching and checkpoint hot-reload;
+  * ``process`` — annotate a folder of images;
+  * ``export``  — refresh ``serving_config.json``, or write a versioned
+    serving bundle.
 
-``serve``, ``process`` and ``export`` are not ported yet (ROADMAP.md) and
-exit with a message saying so. Everything runs on the CUDA card unless
-``--device=<name>`` names another (``--device=cpu``).
+Everything runs on the CUDA card unless ``--device=<name>`` names another
+(``--device=cpu``). Checkpoints and bundles hold torch files
+(``train/checkpoints.py``): the JAX package's orbax checkpoints and bundles
+are not read here, nor these there.
 
 Usage: python -m masklab_tpu_torch.cli <command> [--preset=road]
        [--device=cpu] [-group.attr value ...]
@@ -22,8 +28,6 @@ import sys
 import time
 
 from .config import ModelConfiguration
-
-NOT_PORTED = ('serve', 'process', 'export')
 
 
 def _load_config(args) -> ModelConfiguration:
@@ -133,16 +137,197 @@ def cmd_etl(args) -> None:
     print(f'ETL complete: {cfg.dataset.data_dir}/processed')
 
 
-def _not_ported(name):
-    def command(args) -> None:
-        raise SystemExit(f'{name} is not ported to PyTorch yet (ROADMAP.md, '
-                         'Queue 1 item 3); use python -m masklab_tpu.cli '
-                         f'{name}')
-    return command
+def _build_predictor(cfg, save_dir, mesh_data: int = 0, device=None):
+    """The serving predictor (default mode 'visualize') of the best
+    checkpoint in ``save_dir``: the model is rebuilt from the directory's
+    ``serving_config.json`` where ``export`` wrote one, else from its
+    ``config.json`` with ``cfg``'s postprocess (the serving knobs), else
+    from ``cfg``. Without a checkpoint directory, seeded random weights
+    (``init_weights``, seed 0: smoke mode). ``mesh_data`` above the cards
+    present serves on one card, as the reference does with too few chips;
+    several cards present and asked for raise: data-parallel serving is
+    not ported (ROADMAP.md, Queue 1 item 5)."""
+    import torch
+    from .device import resolve_device
+    from .models.masklab import MaskLab, build_masklab
+    from .serving.predictor import MaskLabPredictor
+    from .train.checkpoints import CheckpointManager, load_variables
+
+    device = resolve_device(device)
+    if mesh_data and mesh_data > 1:
+        n = torch.cuda.device_count() if device.type == 'cuda' else 1
+        if n < mesh_data:
+            print(f'WARNING: --mesh-data={mesh_data} but only {n} '
+                  'device(s); serving single-device')
+        else:
+            raise NotImplementedError(
+                f'--mesh-data={mesh_data}: data-parallel serving over '
+                f'{n} cards is not ported to PyTorch yet (ROADMAP.md, '
+                'Queue 1 item 5)')
+    if save_dir and os.path.isdir(save_dir):
+        ckpt = CheckpointManager(save_dir, None)
+        serving_cfg_path = os.path.join(save_dir, 'serving_config.json')
+        if os.path.exists(serving_cfg_path):
+            cfg = ModelConfiguration.load_json(serving_cfg_path)
+        else:
+            saved_cfg = ckpt.load_config()
+            if saved_cfg is not None:
+                saved_cfg.postprocess = cfg.postprocess
+                cfg = saved_cfg
+        model = load_variables(MaskLab(cfg), ckpt.restore_variables())
+    else:
+        print('WARNING: no checkpoint dir, serving randomly-initialized '
+              'weights (smoke mode)')
+        model = build_masklab(cfg, device=device, seed=0)
+    return MaskLabPredictor(model, cfg, visualization=True, device=device)
 
 
-COMMANDS = {'train': cmd_train, 'eval': cmd_eval, 'etl': cmd_etl,
-            **{name: _not_ported(name) for name in NOT_PORTED}}
+def build_server(args):
+    """``serve``'s arguments -> a ``MaskLabServer`` bound to its port, not
+    yet started. ``--port=N`` (0: a free one; default 8501),
+    ``--max-batch=N`` (8), ``--no-watch`` (no hot-reload of
+    ``-train.save_dir``), ``--warmup`` / ``--warmup-sizes=HxW,...`` (run
+    every (client size, batch bucket, mode) once first),
+    ``--mesh-data=N``, ``--device=``, then -group.attr overrides."""
+    from .serving.batching import default_buckets
+    from .serving.server import DEFAULT_PORT, MaskLabServer
+    rest, device = _split_device(args)
+    flags = ('--port', '--max-batch', '--no-watch', '--warmup',
+             '--mesh-data')
+    cfg = _load_config([a for a in rest if not a.startswith(flags)])
+    port, max_batch, watch, warmup = DEFAULT_PORT, 8, True, False
+    mesh_data = 0
+    warmup_sizes = []
+    for a in rest:
+        if a.startswith('--port='):
+            port = int(a.split('=', 1)[1])
+        elif a.startswith('--max-batch='):
+            max_batch = int(a.split('=', 1)[1])
+        elif a.startswith('--mesh-data='):
+            mesh_data = int(a.split('=', 1)[1])
+        elif a == '--no-watch':
+            watch = False
+        elif a.startswith('--warmup-sizes='):
+            # client image sizes, which need not be postprocess.resolution
+            warmup = True
+            for tok in a.split('=', 1)[1].split(','):
+                if tok:
+                    h, w = tok.lower().split('x')
+                    warmup_sizes.append((int(h), int(w)))
+        elif a == '--warmup':
+            warmup = True
+    if warmup and not warmup_sizes:
+        warmup_sizes = [tuple(cfg.postprocess.resolution)]
+    predictor = _build_predictor(cfg, cfg.train.save_dir, mesh_data, device)
+    if warmup:
+        sizes = [(h, w, b, mode) for (h, w) in warmup_sizes
+                 for b in default_buckets(max_batch)
+                 for mode in ('visualize', 'summarize')]
+        print(f'warming {len(sizes)} pipelines...')
+        predictor.warmup(sizes)
+    watch_dir = cfg.train.save_dir if (
+        watch and cfg.train.save_dir
+        and os.path.isdir(cfg.train.save_dir)) else None
+    server = MaskLabServer(predictor, port=port,
+                           instance_labels=cfg.dataset.instance_labels,
+                           max_batch=max_batch, watch_dir=watch_dir)
+    print(f'serving on :{server.port} (POST /predict, GET /healthz, '
+          f'POST /reload; micro-batch<={max_batch}, '
+          f'hot-reload={"on" if watch_dir else "off"})')
+    return server
+
+
+def cmd_serve(args) -> None:
+    build_server(args).start(background=False)
+
+
+def cmd_process(args) -> None:
+    """``process <src> <dst> [--batch=N] [--device=] [overrides]``:
+    ``--batch=N`` (N > 1) runs stacked batches, for offline runs where
+    throughput matters more than the first result's latency. Only the
+    arguments that start with '-' reach the config, as in the reference:
+    give values in the ``-group.attr=value`` form."""
+    from .serving.server import process_folder
+    rest, device = _split_device(args)
+    paths = [a for a in rest if not a.startswith('-')]
+    if len(paths) < 2:
+        raise SystemExit(
+            'usage: process <src_dir> <dst_dir> [--batch=N] [overrides]')
+    src, dst = paths[0], paths[1]
+    batch = 1
+    overrides = []
+    for a in rest:
+        if a.startswith('--batch='):
+            batch = int(a.split('=', 1)[1])
+        elif a.startswith('-') and a not in (src, dst):
+            overrides.append(a)
+    cfg = _load_config(overrides)
+    predictor = _build_predictor(cfg, cfg.train.save_dir, device=device)
+    results = process_folder(predictor, src, dst,
+                             cfg.dataset.instance_labels, batch_size=batch)
+    print(f'processed {len(results)} images -> {dst} (batch={batch})')
+
+
+def cmd_export(args) -> None:
+    """Two forms:
+
+    * ``export <save_dir> [-postprocess.* ...]`` refreshes
+      ``serving_config.json`` beside the checkpoints: the saved config
+      with the flags given applied (flags not given keep the saved values);
+    * ``export <save_dir> --dest=<bundle_root> [--h5] [-postprocess.*]``
+      writes a self-contained versioned bundle ``<bundle_root>/<N>/`` (N
+      = 1, 2, ...): the best checkpoint, config.json and
+      serving_config.json, which ``serve -train.save_dir <bundle>`` loads
+      by path alone. ``--h5`` (the reference's h5 weights) is not ported
+      and warns; the bundle stands without it.
+    """
+    if not args or args[0].startswith('-'):
+        raise SystemExit('usage: export <save_dir> [--dest=<bundle_root>] '
+                         '[--h5] [-postprocess.* ...]')
+    save_dir = args[0]
+    dest = None
+    want_h5 = False
+    rest = []
+    for a in args[1:]:
+        if a.startswith('--dest='):
+            dest = a.split('=', 1)[1]
+        elif a == '--h5':
+            want_h5 = True
+        else:
+            rest.append(a)
+    from .train.checkpoints import CheckpointManager
+    ckpt = CheckpointManager(save_dir, None)
+    cfg = ckpt.load_config() or ModelConfiguration()
+    # the saved config is the parser's defaults: flags not passed keep it
+    cfg.apply_namespace(cfg.get_arg_parser(args=rest))
+
+    if dest is None:
+        cfg.save_json(os.path.join(save_dir, 'serving_config.json'))
+        print(f'serving config exported to {save_dir}/serving_config.json')
+        return
+
+    import shutil
+    best = ckpt.best_checkpoint()
+    if best is None:
+        raise SystemExit(f'no checkpoints in {save_dir}')
+    os.makedirs(dest, exist_ok=True)
+    existing = [int(n) for n in os.listdir(dest) if n.isdigit()]
+    version = max(existing, default=0) + 1
+    bundle = os.path.join(dest, str(version))
+    os.makedirs(bundle)
+    shutil.copytree(best, os.path.join(bundle, os.path.basename(best)))
+    cfg.save_json(os.path.join(bundle, 'config.json'))
+    cfg.save_json(os.path.join(bundle, 'serving_config.json'))
+    if want_h5:
+        print('WARNING: --h5 export skipped (NotImplementedError: the '
+              "reference's h5 weights are not ported to PyTorch yet "
+              '(ROADMAP.md, Queue 1 item 6))', file=sys.stderr)
+    print(f'bundle exported to {bundle} '
+          f'(serve with: -train.save_dir {bundle})')
+
+
+COMMANDS = {'train': cmd_train, 'eval': cmd_eval, 'serve': cmd_serve,
+            'process': cmd_process, 'etl': cmd_etl, 'export': cmd_export}
 
 
 def main(argv=None) -> None:

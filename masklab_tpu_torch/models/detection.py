@@ -52,21 +52,24 @@ def _rows(x: torch.Tensor, width: int) -> torch.Tensor:
 
 
 class ClassificationSubNet(nn.Module):
-    """Per-level HeadBlock (squeeze-excite optional) + 3x3 output conv
-    (focal bias init) + sigmoid."""
+    """Per-level HeadBlock (squeeze-excite and separable convs optional) +
+    3x3 output conv (focal bias init) + sigmoid."""
 
     def __init__(self, in_channels: Sequence[int], num_classes: int,
                  num_depth: int = 4, num_features: int = 256,
                  num_priors: int = 9, groups: int = 16,
                  dtype=torch.float32, use_squeeze_excite: bool = False,
-                 squeeze_ratio: float = 16.0):
+                 squeeze_ratio: float = 16.0,
+                 use_separable_conv: bool = False,
+                 expand_ratio: float = 4.0):
         super().__init__()
         self.num_classes = num_classes
         self.num_blocks = len(in_channels)
         for idx, ch in enumerate(in_channels):
             self.add_module(f'block_{idx}', HeadBlock(
                 ch, num_depth, num_features, groups, dtype,
-                use_squeeze_excite, squeeze_ratio))
+                use_squeeze_excite, squeeze_ratio, use_separable_conv,
+                expand_ratio))
             self.add_module(f'output_{idx}', same_conv(
                 num_features if num_depth else ch,
                 num_priors * num_classes, 3, dtype=dtype))
@@ -90,13 +93,16 @@ class BoxRegressionSubNet(nn.Module):
                  num_features: int = 256, num_priors: int = 9,
                  groups: int = 16, dtype=torch.float32,
                  use_squeeze_excite: bool = False,
-                 squeeze_ratio: float = 16.0):
+                 squeeze_ratio: float = 16.0,
+                 use_separable_conv: bool = False,
+                 expand_ratio: float = 4.0):
         super().__init__()
         self.num_blocks = len(in_channels)
         for idx, ch in enumerate(in_channels):
             self.add_module(f'block_{idx}', HeadBlock(
                 ch, num_depth, num_features, groups, dtype,
-                use_squeeze_excite, squeeze_ratio))
+                use_squeeze_excite, squeeze_ratio, use_separable_conv,
+                expand_ratio))
             self.add_module(f'output_{idx}', same_conv(
                 num_features if num_depth else ch, num_priors * 4, 3,
                 dtype=dtype))

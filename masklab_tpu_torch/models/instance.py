@@ -62,10 +62,13 @@ class LevelMaskHead(nn.Module):
     def __init__(self, in_ch: int, num_classes: int, num_depth: int,
                  num_features: int, groups: int, dtype=torch.float32,
                  use_squeeze_excite: bool = False,
-                 squeeze_ratio: float = 16.0):
+                 squeeze_ratio: float = 16.0,
+                 use_separable_conv: bool = False,
+                 expand_ratio: float = 4.0):
         super().__init__()
         self.block = HeadBlock(in_ch, num_depth, num_features, groups, dtype,
-                               use_squeeze_excite, squeeze_ratio)
+                               use_squeeze_excite, squeeze_ratio,
+                               use_separable_conv, expand_ratio)
         feats = num_features if num_depth else in_ch
         self.upsample = PixelShuffleUp(feats, num_features, dtype)
         self.output = conv2d(num_features, num_classes, 1, dtype=dtype)
@@ -84,13 +87,16 @@ class MaskSubNet(nn.Module):
                  num_depth: int = 4, num_features: int = 256,
                  groups: int = 16, dtype=torch.float32,
                  use_squeeze_excite: bool = False,
-                 squeeze_ratio: float = 16.0):
+                 squeeze_ratio: float = 16.0,
+                 use_separable_conv: bool = False,
+                 expand_ratio: float = 4.0):
         super().__init__()
         self.num_classes = num_classes
         for i, ch in enumerate(in_channels):
             self.add_module(f'level_{i}', LevelMaskHead(
                 ch, num_classes, num_depth, num_features, groups, dtype,
-                use_squeeze_excite, squeeze_ratio))
+                use_squeeze_excite, squeeze_ratio, use_separable_conv,
+                expand_ratio))
         self.num_levels = len(in_channels)
 
     def forward(self, features: Sequence[torch.Tensor], boxes: torch.Tensor,

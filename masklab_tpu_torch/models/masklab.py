@@ -3,12 +3,12 @@
 Port of ``masklab_tpu/models/masklab.py`` (``raw_heads`` :138-164,
 ``mask_branch`` :166-185, ``__call__`` :189-207, ``trainer_outputs``
 :209-244): shared backbone, FPN, cls/loc heads, detection-config NMS, the
-routed mask branch and the semantic head, with squeeze-excite heads where
-the configuration asks for them (the road preset), and the backbone
-recomputed in the backward pass under ``compute.remat_backbone``.
-Separable heads (``use_separable_conv``) and the fused mask head
-(``fused_mask_head`` with plain instance heads) are not ported yet and
-raise. The BatchNorm mode is
+routed mask branch and the semantic head, with squeeze-excite heads (the
+road preset) and separable heads (``use_separable_conv``) where the
+configuration asks for them, and the backbone recomputed in the backward
+pass under ``compute.remat_backbone``. The fused mask head
+(``fused_mask_head`` with plain instance heads) is not ported yet and
+raises. The BatchNorm mode is
 the module's: ``model.train()`` for the reference's ``train=True``.
 Public outputs keep the reference's layouts: NHWC images in, ``cls_pred``
 [B, N, C], ``roi_boxes`` [B, K, 6], ``roi_masks`` [B, K, 28, 28, C] and
@@ -75,12 +75,6 @@ class MaskLab(nn.Module):
             return body_channels[name]
 
         det, ins, sem = cfg.detection, cfg.instance, cfg.semantic
-        for name, group in (('detection', det), ('instance', ins),
-                            ('semantic', sem)):
-            if group.use_separable_conv:
-                raise NotImplementedError(
-                    f'{name}.use_separable_conv heads are not ported to '
-                    'PyTorch yet (ROADMAP.md, Queue 1)')
         # the reference's condition for FusedMaskSubNet
         # (masklab_tpu/models/masklab.py:104-106): it changes the model, so
         # the port refuses it rather than build the per-level heads
@@ -95,7 +89,9 @@ class MaskLab(nn.Module):
                    + [channels(n) for n in self.other_names])
         common = dict(num_depth=det.num_depth, num_features=det.num_features,
                       num_priors=len(self.prior), groups=det.groups,
-                      dtype=dtype, squeeze_ratio=det.squeeze_ratio)
+                      dtype=dtype, squeeze_ratio=det.squeeze_ratio,
+                      use_separable_conv=det.use_separable_conv,
+                      expand_ratio=det.expand_ratio)
         self.cls_subnet = ClassificationSubNet(
             feat_ch, num_det, use_squeeze_excite=det.use_squeeze_excite,
             **common)
@@ -104,18 +100,24 @@ class MaskLab(nn.Module):
         # road preset's box head has none
         self.loc_subnet = BoxRegressionSubNet(
             feat_ch, use_squeeze_excite=det.use_separable_conv, **common)
+        # the reference's quirk, kept: the mask and segmentation heads'
+        # expand_ratio is float(use_separable_conv), 1.0 when separable
+        # (masklab_tpu/models/masklab.py:117-119, :132)
         self.mask_subnet = MaskSubNet(feat_ch[:ins.max_k + 1], num_det,
                                       ins.num_depth, ins.num_features,
                                       ins.groups, dtype,
                                       ins.use_squeeze_excite,
-                                      ins.squeeze_ratio)
+                                      ins.squeeze_ratio,
+                                      ins.use_separable_conv,
+                                      float(ins.use_separable_conv))
         self.aspp = ASPPNetwork(channels(sem.aspp_input_name),
                                 sem.num_aspp_features, sem.atrous_rate,
                                 sem.atrous_groups, dtype)
         self.seg_subnet = SegmentationSubNet(
             sem.num_aspp_features, channels(sem.skip_input_name), num_seg,
             sem.num_depth, sem.num_features, sem.num_skip_features,
-            sem.groups, dtype, sem.use_squeeze_excite, sem.squeeze_ratio)
+            sem.groups, dtype, sem.use_squeeze_excite, sem.squeeze_ratio,
+            sem.use_separable_conv, float(sem.use_separable_conv))
 
     def _priors(self, h: int, w: int, device: torch.device) -> torch.Tensor:
         key = (h, w, str(device))
@@ -127,20 +129,33 @@ class MaskLab(nn.Module):
                         self.config.backbone.backbone_type))).to(device)
         return self._prior_cache[key]
 
-    def raw_heads(self, images: torch.Tensor) -> Dict:
-        """Backbone -> FPN -> cls/loc heads + ASPP/decoder + priors."""
+    def raw_heads(self, images: torch.Tensor,
+                  generator: Optional[torch.Generator] = None) -> Dict:
+        """Backbone -> FPN -> cls/loc heads + ASPP/decoder + priors.
+        ``generator`` draws the backbone's drop-connect in train mode
+        (efficientnet; the reference's 'dropout' rng)."""
         cfg = self.config
         images = images.float()
         if cfg.compute.remat_backbone and torch.is_grad_enabled():
             # recompute the backbone's activations in the backward pass (the
             # reference's nn.remat); the recomputation must not update the
-            # BatchNorm statistics a second time
+            # BatchNorm statistics a second time, and must draw the same
+            # drop-connect masks: each pass draws from a copy of the
+            # generator's state
+            state = None if generator is None else generator.get_state()
+
+            def backbone(x):
+                if state is None:
+                    return self.backbone(x)
+                g = torch.Generator(device=generator.device)
+                g.set_state(state)
+                return self.backbone(x, g)
             endpoints = checkpoint(
-                self.backbone, images, use_reentrant=False,
+                backbone, images, use_reentrant=False,
                 context_fn=lambda: (contextlib.nullcontext(),
                                     frozen_batch_stats(self.backbone)))
         else:
-            endpoints = self.backbone(images)
+            endpoints = self.backbone(images, generator)
         fpn_outputs = self.fpn([endpoints[n] for n in self.fpn_names])
         features = fpn_outputs + [endpoints[n] for n in self.other_names]
         cls_pred = self.cls_subnet(features).float()
@@ -177,15 +192,17 @@ class MaskLab(nn.Module):
             candidates_per_class=cfg.compute.nms_candidates_per_class)
 
     def trainer_outputs(self, images: torch.Tensor, gt_boxes: torch.Tensor,
-                        with_metrics: bool = True) -> Dict:
+                        with_metrics: bool = True,
+                        generator: Optional[torch.Generator] = None) -> Dict:
         """Trainer path: ``raw_heads``, then the loss-config NMS proposals
         behind the gt boxes feed the mask branch. The NMS runs on detached
         scores and boxes (the reference stops their gradient), so gradients
         reach the feature maps through the mask crops alone. With
         ``with_metrics`` also ``metric_proposals``, the detection-config NMS
-        of the metric branch; without, it is not computed."""
+        of the metric branch; without, it is not computed. ``generator``:
+        as ``raw_heads``."""
         cfg = self.config
-        out = self.raw_heads(images)
+        out = self.raw_heads(images, generator)
         lc = cfg.loss
         with torch.no_grad():
             proposals = batched_class_aware_nms(

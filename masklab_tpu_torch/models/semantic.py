@@ -54,14 +54,17 @@ class SegmentationSubNet(nn.Module):
                  num_depth: int = 2, num_features: int = 256,
                  num_skip_features: int = 48, groups: int = 16,
                  dtype=torch.float32, use_squeeze_excite: bool = False,
-                 squeeze_ratio: float = 16.0):
+                 squeeze_ratio: float = 16.0,
+                 use_separable_conv: bool = False,
+                 expand_ratio: float = 4.0):
         super().__init__()
         self.skip_projection = conv2d(skip_ch, num_skip_features, 1,
                                       bias=False, dtype=dtype)
         self.GroupNorm_0 = GroupNorm(num_skip_features, groups)
         self.HeadBlock_0 = HeadBlock(dec_ch + num_skip_features, num_depth,
                                      num_features, groups, dtype,
-                                     use_squeeze_excite, squeeze_ratio)
+                                     use_squeeze_excite, squeeze_ratio,
+                                     use_separable_conv, expand_ratio)
         self.seg_output = conv2d(
             num_features if num_depth else dec_ch + num_skip_features,
             num_classes, 1, dtype=dtype)

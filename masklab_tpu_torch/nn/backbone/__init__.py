@@ -1,30 +1,52 @@
 """Backbone: preprocess -> body -> endpoints -> P6/P7 extras.
 
 Port of ``BackboneNetwork`` (``masklab_tpu/nn/backbone/__init__.py:56-127``)
-for the mobilenet body (the headline configuration), the seresnet34 body
-(the road preset) and the resnext50 body (the training bench), and a copy of
-``module_frozen`` (``:142-277``), the progressive-unfreeze rule the train
-state's trainable mask reads. The other backbones of the reference's zoo are
-not ported yet (ROADMAP.md, Queue 1) and raise ``NotImplementedError``.
+over every body of the reference's zoo (``BACKBONE_REGISTRY``, ``:33-47``):
+mobilenet, mobilenetv2, resnet50, resnet50v2, resnet101v2, resnext50,
+seresnet34, seresnet50, seresnext50, vgg16 and efficientnet b2 / b3 / b4;
+and a copy of ``module_frozen`` (``:142-277``), the progressive-unfreeze
+rule the train state's trainable mask reads. A name the reference rejects
+raises ``NotImplementedError`` here too.
 """
 from __future__ import annotations
 
+import functools
 import re
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..layers import GroupNorm, conv2d, pad_same_s2, pad_valid_s2
-from . import mobilenet, resnet
+from . import efficientnet, mobilenet, mobilenetv2, resnet, vgg
 from .preprocess import PREPROCESS_COMBOS, preprocess_for
+
+
+def _effnet(name):
+    return (functools.partial(efficientnet.efficientnet, name),
+            efficientnet.CHANNELS[name], 'EfficientNet_0')
+
 
 # name -> (body factory, endpoint channels, the body's flax module name)
 _BODIES = {
     'mobilenet': (lambda dtype: mobilenet.MobileNetV1(dtype=dtype),
                   mobilenet.CHANNELS, 'MobileNetV1_0'),
+    'mobilenetv2': (mobilenetv2.MobileNetV2, mobilenetv2.CHANNELS,
+                    'MobileNetV2_0'),
+    'resnet50': (resnet.resnet50, resnet.RESNET50_CHANNELS, 'ResNet_0'),
+    'resnet50v2': (resnet.resnet50v2, resnet.RESNET50_CHANNELS,
+                   'ResNetV2_0'),
+    'resnet101v2': (resnet.resnet101v2, resnet.RESNET101V2_CHANNELS,
+                    'ResNetV2_0'),
+    'resnext50': (resnet.resnext50, resnet.RESNET50_CHANNELS, 'ResNet_0'),
     'seresnet34': (resnet.seresnet34, resnet.CHANNELS, 'CMResNet_0'),
-    'resnext50': (resnet.resnext50, resnet.RESNEXT50_CHANNELS, 'ResNet_0'),
+    'seresnet50': (resnet.seresnet50, resnet.RESNET50_CHANNELS, 'ResNet_0'),
+    'seresnext50': (resnet.seresnext50, resnet.RESNET50_CHANNELS,
+                    'ResNet_0'),
+    'vgg16': (vgg.VGG16, vgg.CHANNELS, 'VGG16_0'),
+    'efficientnetb2': _effnet('efficientnetb2'),
+    'efficientnetb3': _effnet('efficientnetb3'),
+    'efficientnetb4': _effnet('efficientnetb4'),
 }
 PORTED_BACKBONES = tuple(_BODIES)
 
@@ -33,8 +55,7 @@ def _check_ported(backbone_type: str) -> str:
     name = backbone_type.lower()
     if name not in _BODIES:
         raise NotImplementedError(
-            f'backbone {backbone_type!r} is not ported to PyTorch yet; '
-            f'ported: {PORTED_BACKBONES} (see ROADMAP.md, Queue 1)')
+            f'backbone_type must be one of {sorted(_BODIES)}')
     return name
 
 
@@ -92,11 +113,14 @@ class BackboneNetwork(nn.Module):
                 f'{t.shape[-2]}x{t.shape[-1]}; use a larger input or drop '
                 'P6/P7 from backbone_outputs')
 
-    def forward(self, images: torch.Tensor):
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws a body's random layers in train mode (each
+        body takes it; those with no random layer ignore it)."""
         x = preprocess_for(self.backbone_type, images)
         x = x.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        endpoints = getattr(self, self.body_name)(x)
+        endpoints = getattr(self, self.body_name)(x, generator)
         outputs = {k: v for k, v in endpoints.items()
                    if k in self.backbone_outputs}
         if hasattr(self, 'extras_P6_conv'):

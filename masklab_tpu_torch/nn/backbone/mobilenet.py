@@ -78,7 +78,7 @@ class MobileNetV1(nn.Module):
             self.add_module(f'pw{i}', _ConvBN(ch, out, 1, dtype=dtype))
             ch = out
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         """x: float NCHW frames, cast here to the convs' dtype."""
         endpoints = {}
         x = self.stem(x.to(self.dtype))

@@ -14,10 +14,10 @@ bf16 would; the predictor casts them once instead (``hold_compute_dtype``).
 ``BatchNorm`` normalizes with batch statistics in train mode
 (``model.train()``) and with its running statistics in eval mode.
 
-``SqueezeExcite`` gates the inputs of the heads' convs in the road preset.
-Not ported here: ``MobileSeparableConv`` (separable heads, which no preset
-uses; ROADMAP.md, Queue 1) and the space-to-depth ``StemConv`` (a TPU form
-of the plain stride-2 stem conv).
+``SqueezeExcite`` gates the inputs of the heads' convs in the road preset;
+``MobileSeparableConv`` makes up the separable heads
+(``use_separable_conv``). Not ported here: the space-to-depth ``StemConv``
+(a TPU form of the plain stride-2 stem conv).
 """
 from __future__ import annotations
 
@@ -99,14 +99,14 @@ def pad_valid_s2(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, 1, 0, 1))
 
 
-def pad_same_s2(x: torch.Tensor) -> torch.Tensor:
-    """XLA 'SAME' padding of a 3x3 stride-2 conv (NCHW): each spatial axis
-    of size n gets ceil(n / 2) outputs and max((ceil(n / 2) - 1) * 2 + 3 -
-    n, 0) zeros, the smaller half before: (0, 1) on an even axis and (1, 1)
-    on an odd one."""
+def pad_same_s2(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
+    """XLA 'SAME' padding of a k x k stride-2 conv (NCHW): each spatial axis
+    of size n gets ceil(n / 2) outputs and max((ceil(n / 2) - 1) * 2 + k -
+    n, 0) zeros, the smaller half before. For k = 3: (0, 1) on an even axis
+    and (1, 1) on an odd one; for k = 5: (1, 2) and (2, 2)."""
     pads = []
     for n in (x.shape[-1], x.shape[-2]):
-        total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
+        total = max((-(-n // 2) - 1) * 2 + kernel - n, 0)
         pads += [total // 2, total - total // 2]
     return F.pad(x, pads)
 
@@ -258,33 +258,80 @@ class AtrousSeparableConv(nn.Module):
         return torch.relu(self.GroupNorm_1(x))
 
 
+class MobileSeparableConv(nn.Module):
+    """Inverted-residual separable conv (``masklab_tpu/nn/layers.py:264-
+    289``): 1x1 expand to ``int(expand_ratio * filters)`` -> GroupNorm ->
+    relu -> depthwise k x k -> GroupNorm -> relu -> 1x1 to ``filters`` ->
+    GroupNorm, added to the input. The add needs the input to have
+    ``filters`` channels; the reference fails there too otherwise. Each
+    GroupNorm is the flat-band one, so a ragged map takes K1."""
+
+    def __init__(self, in_ch: int, filters: int, kernel_size: int = 3,
+                 expand_ratio: float = 4.0, groups: int = 16,
+                 dtype=torch.float32):
+        super().__init__()
+        if in_ch != filters:
+            raise ValueError(
+                f'MobileSeparableConv adds its input ({in_ch} channels) to '
+                f'its output ({filters}): the widths must match')
+        expanded = int(expand_ratio * filters)
+        self.Conv_0 = conv2d(in_ch, expanded, 1, bias=False, dtype=dtype)
+        self.GroupNorm_0 = GroupNorm(expanded, groups)
+        self.Conv_1 = same_conv(expanded, expanded, kernel_size, bias=False,
+                                groups=expanded, dtype=dtype)
+        self.GroupNorm_1 = GroupNorm(expanded, groups)
+        self.Conv_2 = conv2d(expanded, filters, 1, bias=False, dtype=dtype)
+        self.GroupNorm_2 = GroupNorm(filters, groups)
+
+    def forward(self, x):
+        y = torch.relu(self.GroupNorm_0(self.Conv_0(x)))
+        y = torch.relu(self.GroupNorm_1(self.Conv_1(y)))
+        return x + self.GroupNorm_2(self.Conv_2(y))
+
+
 class HeadBlock(nn.Module):
     """``num_depth`` x [SqueezeExcite? -> Conv3x3 -> ReLU -> GroupNorm],
     the shared body of the cls/loc, mask and segmentation heads. The relu
     rides inside the GroupNorm (K1's fuse_relu on ragged maps). Each
     SqueezeExcite pools its own sample, so in the mask heads each RoI crop
-    alone."""
+    alone. With ``use_separable_conv`` each layer is instead
+    [SqueezeExcite? -> MobileSeparableConv -> GroupNorm] (no relu), named
+    ``MobileSeparableConv_{i}`` / ``GroupNorm_{i}`` as the reference's
+    auto-numbered modules."""
 
     def __init__(self, in_ch: int, num_depth: int = 4,
                  num_features: int = 256, groups: int = 16,
                  dtype=torch.float32, use_squeeze_excite: bool = False,
-                 squeeze_ratio: float = 16.0):
+                 squeeze_ratio: float = 16.0,
+                 use_separable_conv: bool = False,
+                 expand_ratio: float = 4.0):
         super().__init__()
         self.num_depth = num_depth
         self.use_squeeze_excite = use_squeeze_excite
+        self.use_separable_conv = use_separable_conv
         for i in range(num_depth):
             ch = in_ch if i == 0 else num_features
             if use_squeeze_excite:
                 self.add_module(f'SqueezeExcite_{i}', SqueezeExcite(
                     ch, squeeze_ratio, dtype))
-            self.add_module(f'Conv_{i}', same_conv(ch, num_features, 3,
-                                                   dtype=dtype))
+            if use_separable_conv:
+                self.add_module(f'MobileSeparableConv_{i}',
+                                MobileSeparableConv(ch, num_features, 3,
+                                                    expand_ratio, groups,
+                                                    dtype))
+            else:
+                self.add_module(f'Conv_{i}', same_conv(ch, num_features, 3,
+                                                       dtype=dtype))
             self.add_module(f'GroupNorm_{i}', GroupNorm(num_features, groups))
 
     def forward(self, x):
         for i in range(self.num_depth):
             if self.use_squeeze_excite:
                 x = getattr(self, f'SqueezeExcite_{i}')(x)
-            x = getattr(self, f'Conv_{i}')(x)
-            x = getattr(self, f'GroupNorm_{i}')(x, fuse_relu=True)
+            if self.use_separable_conv:
+                x = getattr(self, f'MobileSeparableConv_{i}')(x)
+                x = getattr(self, f'GroupNorm_{i}')(x)
+            else:
+                x = getattr(self, f'Conv_{i}')(x)
+                x = getattr(self, f'GroupNorm_{i}')(x, fuse_relu=True)
         return x

@@ -9,12 +9,17 @@ group retried at a strictly smaller bucket, while a bucket that has served
 before passes a later failure to its callers and stays in service. One
 request alone leaves after ``window_ms``.
 
-``CheckpointWatcher`` (checkpoint hot-reload) restores checkpoints through
-the trainer's checkpoint manager and waits for the trainer-runtime slice
-(ROADMAP.md, Queue 1).
+And of ``CheckpointWatcher`` (``:252-305``): checkpoint hot-reload. It
+polls a checkpoint directory for a new best checkpoint (``train/
+checkpoints.py``, whose ``best_checkpoint`` skips the ``tmp`` names a save
+is still writing), has the predictor build a model from it off to the side
+(``place_variables``: on the predictor's device, its weights cast once),
+then swaps it in with one reference assignment, so a request in flight
+runs on the old model or the new one, never on a half-loaded one.
 """
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import time
@@ -218,3 +223,67 @@ class MicroBatcher:
               f'({type(exc).__name__}: {str(exc)[:200]}); suspended for '
               f'{cooldown:.0f}s; serving continues at max batch {current}',
               file=sys.stderr, flush=True)
+
+
+class CheckpointWatcher:
+    """Polls ``save_dir`` for a new best checkpoint and hot-swaps the
+    predictor's model (TF-Serving's version-directory polling, on the
+    port's torch checkpoints).
+
+    ``restore(path)`` gives a checkpoint's variables (default: the
+    checkpoint manager's ``restore_variables``); the predictor's
+    ``place_variables(variables)`` builds the model that serves them, and
+    ``predictor.model`` is then replaced in one assignment. ``current`` is
+    the checkpoint being served (None until the first swap). A failure in
+    the poll thread keeps the old model; ``check_once`` raises it."""
+
+    def __init__(self, predictor, save_dir: str, poll_s: float = 10.0,
+                 restore: Optional[Callable[[str], Dict]] = None):
+        if not callable(getattr(predictor, 'place_variables', None)):
+            raise TypeError('CheckpointWatcher needs a predictor with '
+                            'place_variables(variables) to build the model '
+                            'it swaps in')
+        self.predictor = predictor
+        self.save_dir = save_dir
+        self.poll_s = poll_s
+        self._restore = restore or self._default_restore
+        self.current: Optional[str] = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @staticmethod
+    def _default_restore(ckpt_dir: str) -> Dict:
+        from ..train.checkpoints import CheckpointManager
+        return CheckpointManager(os.path.dirname(ckpt_dir),
+                                 None).restore_variables(ckpt_dir)
+
+    def check_once(self) -> bool:
+        """One poll; True if a new version was swapped in. Polls from the
+        thread and from ``/reload`` take turns."""
+        from ..train.checkpoints import CheckpointManager
+        with self._lock:
+            if not os.path.isdir(self.save_dir):
+                return False
+            best = CheckpointManager(self.save_dir, None).best_checkpoint()
+            if best is None or best == self.current:
+                return False
+            model = self.predictor.place_variables(self._restore(best))
+            self.predictor.model = model         # the swap: one assignment
+            self.current = best
+            return True
+
+    def start(self):
+        def loop():
+            while not self._stop.wait(self.poll_s):
+                try:
+                    self.check_once()
+                except Exception:  # noqa: BLE001 - keep serving the old one
+                    pass
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)

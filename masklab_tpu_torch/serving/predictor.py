@@ -54,6 +54,8 @@ class MaskLabPredictor:
 
     def __init__(self, model, config: Optional[ModelConfiguration] = None,
                  visualization: bool = False, mesh=None, device=None):
+        """``self.model`` is read once a request, so a model swapped in by
+        a ``CheckpointWatcher`` serves the next request whole."""
         if mesh is not None:
             raise NotImplementedError(
                 'multi-card serving (mesh=) is not ported to PyTorch yet '
@@ -62,6 +64,17 @@ class MaskLabPredictor:
         self.model = hold_compute_dtype(model.to(self.device).eval())
         self.config = config or model.config
         self.visualization = visualization
+
+    def place_variables(self, variables) -> torch.nn.Module:
+        """A new model of this predictor's configuration holding
+        ``variables`` (``train.checkpoints.restore_variables``' form), on
+        its device, in inference mode, its weights cast once: ready to be
+        swapped in as ``self.model`` (``CheckpointWatcher``). The serving
+        model is left alone, so both are on the device until the swap."""
+        from ..models.masklab import MaskLab
+        from ..train.checkpoints import load_variables
+        model = load_variables(MaskLab(self.config), variables)
+        return hold_compute_dtype(model.to(self.device).eval())
 
     def _downsample(self, images: torch.Tensor):
         """uint8 NHWC frames -> (float frames at the model's resolution,

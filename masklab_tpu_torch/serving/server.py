@@ -8,9 +8,10 @@ predictor in process:
     signature); ``?outputs=summarize`` skips the frame, ``?outputs=raw``
     answers boxes, and ``?outputs=jpeg`` returns the annotated JPEG bytes
     (Content-Type image/jpeg, analytics in the X-Masklab-Summary header);
-  * POST /reload    answers 400: checkpoint hot-reload (``watch_dir``)
-    waits for the trainer-runtime slice (ROADMAP.md, Queue 1);
-  * GET  /healthz   readiness probe;
+  * POST /reload    polls the watched checkpoint directory now and answers
+    {"reloaded", "model_version"}; 400 without ``watch_dir``;
+  * GET  /healthz   readiness probe, with the served checkpoint as
+    ``model_version`` when a directory is watched;
   * ``send_image_to_server``: client round trip with a request deadline;
   * ``process_folder``: offline processing of an image folder, one image
     per call or in stacked batches.
@@ -30,7 +31,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from .batching import MicroBatcher
+from .batching import CheckpointWatcher, MicroBatcher
 from .predictor import (MaskLabPredictor, decode_image_bytes,
                         summary_to_records)
 
@@ -40,6 +41,7 @@ DEFAULT_PORT = 8501  # the REST port of the reference's TF-Serving
 class _Handler(BaseHTTPRequestHandler):
     predictor: MaskLabPredictor = None
     batcher: Optional[MicroBatcher] = None
+    watcher: Optional[CheckpointWatcher] = None
     instance_labels = ()
 
     def log_message(self, fmt, *args):  # quiet
@@ -47,13 +49,27 @@ class _Handler(BaseHTTPRequestHandler):
 
     def do_GET(self):
         if self.path == '/healthz':
-            self._respond(200, json.dumps({'status': 'ok'}).encode())
+            info = {'status': 'ok'}
+            if self.watcher is not None:
+                info['model_version'] = self.watcher.current
+            self._respond(200, json.dumps(info).encode())
         else:
             self._respond(404, b'{"error": "not found"}')
 
     def do_POST(self):
         if self.path == '/reload':
-            self._respond(400, b'{"error": "no watch dir configured"}')
+            # the version check on demand (the poll thread's, now)
+            if self.watcher is None:
+                self._respond(400, b'{"error": "no watch dir configured"}')
+                return
+            try:
+                swapped = self.watcher.check_once()
+            except Exception as exc:  # noqa: BLE001 - answered to the client
+                self._respond(500, json.dumps({'error': str(exc)}).encode())
+                return
+            self._respond(200, json.dumps(
+                {'reloaded': swapped,
+                 'model_version': self.watcher.current}).encode())
             return
         path, _, query = self.path.partition('?')
         if path != '/predict':
@@ -119,19 +135,23 @@ class MaskLabServer:
     def __init__(self, predictor: MaskLabPredictor,
                  port: int = DEFAULT_PORT, instance_labels=(),
                  max_batch: int = 8, window_ms: float = 4.0,
-                 watch_dir: Optional[str] = None):
-        """``max_batch > 1`` turns on server-side micro-batching. ``port``
-        0 binds a free port, which ``self.port`` then holds."""
+                 watch_dir: Optional[str] = None,
+                 watch_poll_s: float = 10.0):
+        """``max_batch > 1`` turns on server-side micro-batching;
+        ``watch_dir`` turns on checkpoint hot-reload, polled every
+        ``watch_poll_s`` seconds. ``port`` 0 binds a free port, which
+        ``self.port`` then holds."""
+        self.watcher = None
         if watch_dir:
-            raise NotImplementedError(
-                'checkpoint hot-reload (watch_dir=) is not ported to PyTorch '
-                'yet; it comes with the trainer runtime (ROADMAP.md, Queue 1)')
+            self.watcher = CheckpointWatcher(predictor, watch_dir,
+                                             poll_s=watch_poll_s)
         self.batcher = (MicroBatcher(predictor.predict, max_batch=max_batch,
                                      window_ms=window_ms)
                         if max_batch > 1 else None)
         handler = type('BoundHandler', (_Handler,), {
             'predictor': predictor,
             'batcher': self.batcher,
+            'watcher': self.watcher,
             'instance_labels': tuple(instance_labels),
         })
         # the default listen backlog (5) resets connections under the
@@ -141,8 +161,12 @@ class MaskLabServer:
         self.httpd = server_cls(('0.0.0.0', port), handler)
         self.port = self.httpd.server_address[1]
         self.thread: Optional[threading.Thread] = None
+        self.serving = False
+        if self.watcher is not None:
+            self.watcher.start()
 
     def start(self, background: bool = True):
+        self.serving = True
         if background:
             self.thread = threading.Thread(
                 target=self.httpd.serve_forever, daemon=True)
@@ -151,10 +175,15 @@ class MaskLabServer:
             self.httpd.serve_forever()
 
     def stop(self):
-        self.httpd.shutdown()
+        """Stop serving (a server never started only closes its socket:
+        ``shutdown`` would wait for a loop that never ran)."""
+        if self.serving:
+            self.httpd.shutdown()
         self.httpd.server_close()
         if self.batcher is not None:
             self.batcher.close()
+        if self.watcher is not None:
+            self.watcher.stop()
 
 
 def send_image_to_server(image_path: str, host: str = 'localhost',

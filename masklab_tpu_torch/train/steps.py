@@ -100,18 +100,27 @@ def gradients(total: torch.Tensor, params: Dict[str, torch.Tensor]
             for (k, p), g in zip(params.items(), grads)}
 
 
-def make_train_step(model: MaskLab, with_metrics: bool = True) -> Callable:
+def make_train_step(model: MaskLab, with_metrics: bool = True,
+                    seed: int = 42) -> Callable:
     """The train step: (state, batch) -> (state, metrics). ``state`` is a
     ``TrainState`` of ``model``, updated in place; ``batch`` holds tensors
-    on the model's device (``as_batch``)."""
+    on the model's device (``as_batch``). ``seed`` is the run's base seed
+    (``train.seed``): each step's drop-connect (efficientnet) draws from a
+    CPU generator seeded from it and the step, as the reference folds
+    ``PRNGKey(seed)`` with the step (its bits differ from the reference's
+    draws; their distribution is the same)."""
 
     def train_step(state: TrainState, batch: Dict):
         if state.model is not model:
             raise ValueError('the state holds another model')
         model.train()
+        # the CPU generator keeps the seed's low 32 bits
+        generator = torch.Generator().manual_seed(
+            (seed * 1_000_003 + state.step) % (1 << 32))
         with record_function('stage:forward'):
             out = model.trainer_outputs(batch['images'], batch['gt_boxes'],
-                                        with_metrics=with_metrics)
+                                        with_metrics=with_metrics,
+                                        generator=generator)
         with record_function('stage:losses'):
             total, new_box_state, metrics = losses_of(
                 model, out, batch, state.box_loss_state, with_metrics)

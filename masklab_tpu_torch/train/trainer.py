@@ -151,7 +151,7 @@ class MaskLabTrainer:
         tx, schedule = self._phase_tx(base_lr, max_lr, step_size,
                                       freeze_depth)
         self._rebuild_state_for_phase(tx)
-        step_fn = make_train_step(self.model)
+        step_fn = make_train_step(self.model, seed=self.config.train.seed)
         eval_fn = make_eval_step(self.model) if valid_generator else None
         steps = steps_per_epoch if steps_per_epoch is not None \
             else max(1, step_size // 2)

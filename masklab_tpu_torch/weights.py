@@ -5,8 +5,9 @@ given as nested dicts of numpy arrays (``params`` and ``batch_stats``). The
 port's submodules carry the flax module names, so a torch module at
 ``a.b.c`` takes the flax leaves under ``a/b/c``. Conversions:
 
-  * conv kernel HWIO -> OIHW (a depthwise [kh, kw, 1, C] lands as
-    [C, 1, kh, kw] by the same transpose);
+  * conv kernel HWIO -> OIHW, biased or not (a depthwise [kh, kw, 1, C]
+    lands as [C, 1, kh, kw] and a grouped [kh, kw, C_in/G, out] as [out,
+    C_in/G, kh, kw] by the same transpose);
   * the mask head's ``upsample`` kernel [2, 2, C_in, F] -> the transposed
     conv's [C_in, F, 2, 2], flipped in both spatial axes (the reference
     applies ``kernel[::-1, ::-1]``);

@@ -41,9 +41,12 @@ TRAINING_MODULES = ['data.dataset', 'data.generator', 'data.imglab',
                     'data.process', 'data.synthetic', 'data.tables', 'native',
                     'train.trainer', 'train.checkpoints', 'utils.loggers',
                     'eval.miou', 'cli']
+# the deployment slice's modules: the backbone zoo, hot-reload, the servers
+DEPLOY_MODULES = ['nn.backbone.efficientnet', 'nn.backbone.mobilenetv2',
+                  'nn.backbone.vgg', 'serving.batching', 'serving.server']
 
 
-@pytest.mark.parametrize('module', TRAINING_MODULES)
+@pytest.mark.parametrize('module', TRAINING_MODULES + DEPLOY_MODULES)
 def test_training_module_imports_no_jax_reference_or_pandas(module):
     """Imported alone in a fresh interpreter: no jax, flax or masklab_tpu
     module is loaded, nor pandas by a data module."""
@@ -69,8 +72,9 @@ def test_sources_import_nothing_of_jax_or_the_reference():
     walked = {os.path.relpath(p, ROOT) for p in _port_sources()}
     for module in ('train/steps.py', 'train/optimizers.py', 'train/state.py',
                    'losses.py', 'metrics.py', 'data/synthetic.py',
-                   *(m.replace('.', '/') + '.py' for m in TRAINING_MODULES
-                     if m != 'native'), 'native/__init__.py'):
+                   *(m.replace('.', '/') + '.py' for m in
+                     TRAINING_MODULES + DEPLOY_MODULES if m != 'native'),
+                   'native/__init__.py', 'nn/backbone/resnet.py'):
         assert os.path.join('masklab_tpu_torch', module) in walked, module
     assert not offenders, offenders
 
@@ -108,10 +112,22 @@ def test_predictor_refuses_unported_modes():
 
 @pytest.mark.parametrize('group', ['detection', 'instance', 'semantic'])
 def test_separable_heads_raise(group):
+    """Separable heads are ported: they build wherever the reference's
+    build, and raise only where the reference fails too. The road preset's
+    segmentation head adds its 160-channel input (128 ASPP + 32 skip
+    features) to its 128-channel output, which the reference's add rejects
+    as the port's construction does."""
     cfg = mt.road_project_config()
     getattr(cfg, group).use_separable_conv = True
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        mt.MaskLab(cfg)
+    if group == 'semantic':
+        with pytest.raises(ValueError, match='widths must match'):
+            mt.MaskLab(cfg)
+        cfg.semantic.num_aspp_features = 96
+    model = mt.MaskLab(cfg)
+    head = {'detection': model.cls_subnet.block_0,
+            'instance': model.mask_subnet.level_0.block,
+            'semantic': model.seg_subnet.HeadBlock_0}[group]
+    assert hasattr(head, 'MobileSeparableConv_0')
 
 
 @pytest.mark.parametrize('preset', ['mobilenet', 'road'])
@@ -136,21 +152,31 @@ def test_fused_mask_head_raises(preset):
 
 
 def test_server_refuses_watch_dir(tmp_path):
-    """Checkpoint hot-reload waits for the trainer runtime: the server
-    raises before it binds a port."""
+    """Checkpoint hot-reload swaps in a model the predictor builds
+    (``place_variables``): a server asked to watch a directory for a
+    predictor that cannot raises before it binds a port."""
     from masklab_tpu_torch.serving import MaskLabServer
 
     class NoPredictor:
         def predict(self, images, mode=None):
             raise AssertionError('not called')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(TypeError, match='place_variables'):
         MaskLabServer(NoPredictor(), port=0, watch_dir=str(tmp_path))
 
 
 def test_unported_backbone_raises():
-    cfg = mt.ModelConfiguration()      # default backbone: resnet50
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        mt.build_masklab(cfg, device='cpu')
+    """The registry is the reference's: a name it lacks raises (resnet101
+    is defined there but not registered), the default resnet50 builds."""
+    from masklab_tpu.nn.backbone import BACKBONE_REGISTRY
+    from masklab_tpu_torch.nn.backbone import PORTED_BACKBONES
+    assert set(PORTED_BACKBONES) == set(BACKBONE_REGISTRY)
+    cfg = mt.ModelConfiguration()
+    for name in ('resnet101', 'nope'):
+        cfg.backbone.backbone_type = name
+        with pytest.raises(NotImplementedError, match='must be one of'):
+            mt.MaskLab(cfg)
+    assert type(mt.MaskLab(mt.ModelConfiguration()).backbone.ResNet_0
+                ).__name__ == 'ResNet'
 
 
 @pytest.mark.parametrize('call', ['band_groupnorm', 'segment_topk',

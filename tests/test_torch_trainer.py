@@ -439,10 +439,20 @@ def test_cli_etl_train_eval(tmp_path):
 
 
 @pytest.mark.parametrize('command', ['serve', 'process', 'export'])
-def test_unported_commands_exit(command):
-    with pytest.raises(SystemExit, match='ROADMAP') as exc:
-        tcli.main([command, 'x', 'y'])
+def test_unported_commands_exit(command, tmp_path):
+    """serve, process and export are ported (tests/test_torch_deploy.py):
+    each parses its arguments as the reference's does and exits non-zero
+    on a flag it does not know, before it builds a model or binds a
+    port."""
+    args = {'serve': ['--port=0', '--bogus'],
+            'process': [str(tmp_path), str(tmp_path / 'out'), '--bogus'],
+            'export': [str(tmp_path), '--bogus']}[command]
+    with pytest.raises(SystemExit) as exc:
+        tcli.main([command, *args, '--device=cpu'])
     assert exc.value.code not in (0, None)
+    with pytest.raises(SystemExit) as ref:
+        jcli.main([command, *args])
+    assert ref.value.code == exc.value.code
 
 
 def test_trainer_and_cli_need_a_card_or_the_cpu(monkeypatch, data_dir,
