@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (masklab_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--kernels-only | --serve-only | --trainer-only
-                           | --deploy-only | --reference-draws N]
+                           | --deploy-only | --parallel-only
+                           | --multi-card | --reference-draws N]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -83,7 +84,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
  10. separable: the deployment with separable heads, narrow card vs CPU,
      one full-width summarize request, K1 at the maps it gets.
 
-Phases 8-10 run after phase 6 and before phase 7.
+ 11. parallel: data parallelism over torch.distributed (``run_parallel``):
+     two gloo ranks on the one card against one process on it (the narrow
+     float32 road preset, 2 steps of a global batch of 4 at 128 px, every
+     run on the one-process run's loss-NMS proposals and ReLU gates, each
+     rank its rows), each tensor within TRAIN_REF_RATIO x the same pair's
+     distance on the CPU (two gloo CPU ranks against one CPU process), the
+     ranks bitwise equal; the road preset at full width through the
+     multihost worker's library (bf16, 2 ranks x 4 at 416x768: K2 at [4,
+     5, 99540] a rank; PARALLEL_WARMUP + PARALLEL_STEPS steps, K1, K1's
+     backward, K2 and K3 launched in every counted step on each rank, ms a
+     step, img/s of the pair, the collectives' share of a traced step,
+     peak memory, the ranks bitwise equal), then the worker at world size
+     1 over NCCL; the headline predictor over a mesh of two replicas on
+     the card (a batch of 15, padded to 16), every mode exact against the
+     unsharded predictor on the same shards, boxes and analytics against
+     the whole batch, img/s and p50 on 2 replicas and 1, a hot swap
+     rebuilding both replicas.
+
+Phases 8-10 and 11 run after phase 6 and before phase 7.
 
 Then it prints the ``kernels`` JSON line (each kernel's ``launches`` from
 the headline raw path, K1's backward's from the train path,
@@ -99,7 +118,12 @@ comparing two trees in one call. ``--serve-only`` runs phases 1, 2 and the
 two deployments' serve paths (phase 5 without the headline's extras), for
 comparing the serve paths of two trees the same way. ``--trainer-only``
 runs phases 1, 2, K2's check (without its edge cases) and phase 7.
-``--deploy-only`` runs phases 1, 2 and 8-10. ``--reference-draws N`` runs
+``--deploy-only`` runs phases 1, 2 and 8-10, ``--parallel-only`` phases 1,
+2 and 11. ``--multi-card`` (two cards at least; not part of the default
+run, which needs one) runs phases 1, 2 and data parallelism over every
+card: the full-width step over one NCCL rank a card against one rank, the
+CLI trainer with ``compute.mesh_data`` = the cards, the serving mesh over
+them. ``--reference-draws N`` runs
 phases 1, 2 and phase 4's train reference at N fresh batch seeds, reporting
 each verdict (a failing draw does not fail the run).
 """
@@ -1164,8 +1188,21 @@ def target_flips(name: str, args: tuple, own, want) -> tuple:
     return int((differ & near).sum()), int((differ & ~near).sum())
 
 
+def rank_rows(t: torch.Tensor, n: int, part) -> torch.Tensor:
+    """A rank's ``n`` leading rows of the one-process run's ``t``, ``part``
+    = (rank, 2) of two ranks (None: all of ``t``). Rank 0 holds the first
+    rows, rank 1 the last: so for the batch's images, and for a mask level's
+    RoIs, which the mask branch orders image by image."""
+    if part is None:
+        return t
+    if part[1] != 2:
+        raise ValueError('rank_rows splits between two ranks')
+    return t[:n] if part[0] == 0 else t[t.shape[0] - n:]
+
+
 @contextlib.contextmanager
-def fixed_decisions(decided=None, dtype=torch.float32, hold=True):
+def fixed_decisions(decided=None, dtype=torch.float32, hold=True,
+                    part=None, fused=False):
     """With ``decided`` None (the witness), the step decides, and its
     answers to STEP_DECISIONS ({function name: answer}, on the CPU) and the
     signs of the input of every ReLU of a feature map (``torch.relu`` of a
@@ -1185,7 +1222,11 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True):
     witness to measure arithmetic. The ReLU that K1 fuses into a ragged
     GroupNorm stays each run's own (on the card the kernel applies it; its
     plain version's ``torch.relu`` on [N, Q, C] rows is not a feature
-    map's)."""
+    map's), unless ``fused``: then a GroupNorm asked to apply its relu
+    applies none, and its input passes through the ReLU of a feature map
+    above (recorded or gated like the others). ``part`` = (rank, 2): the
+    block runs one of two ranks of a data-parallel step on its rows, and
+    takes its rows of ``decided`` (``rank_rows``)."""
     import importlib
     record, saved = {'relu': [], 'held': {}}, []
 
@@ -1197,6 +1238,11 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True):
             return tuple(like(a, ref) for a in t)
         t = t.to(ref.device)
         return t.to(dtype) if t.is_floating_point() else t
+
+    def rows(t, n):
+        if isinstance(t, tuple):
+            return tuple(rows(a, n) for a in t)
+        return rank_rows(t, n, part)
 
     for module_name, fn_name in STEP_DECISIONS:
         module = importlib.import_module(module_name)
@@ -1212,17 +1258,17 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True):
                     raise AssertionError(f'{_name} decided twice in a step')
                 record[_name] = cpu(out)
                 return out
+            want = rows(decided[_name], args[0].shape[0])
             if _held:
                 near, away = target_flips(_name, args,
-                                          cpu(_fn(*args, **kwargs)),
-                                          decided[_name])
+                                          cpu(_fn(*args, **kwargs)), want)
                 record['held'][_name] = dict(near=near, away=away)
                 if hold and away:
                     raise AssertionError(
                         f'train reference: {_name} differs from the '
                         f"witness's at {away} entries away from a threshold "
                         f'({near} near one)')
-            return like(decided[_name], args[0])
+            return like(want, args[0])
         setattr(module, fn_name, replaced)
     relu = torch.relu
     gates = iter(decided['relu']) if decided is not None else None
@@ -1233,13 +1279,21 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True):
         if gates is None:
             record['relu'].append((x > 0).cpu())
             return relu(x)
-        gate = next(gates).to(x.device)
+        gate = rank_rows(next(gates), x.shape[0], part).to(x.device)
         if gate.shape != x.shape:
             raise AssertionError(f'relu gate {tuple(gate.shape)} for a map '
                                  f'{tuple(x.shape)}')
         return torch.where(gate, x, torch.zeros_like(x))
     saved.append((torch, 'relu', relu))
     torch.relu = gated
+    if fused:
+        from masklab_tpu_torch.nn.layers import GroupNorm
+        norm = GroupNorm.forward
+
+        def unfused(self, x, fuse_relu=False):
+            return norm(self, gated(x) if fuse_relu else x)
+        saved.append((GroupNorm, 'forward', norm))
+        GroupNorm.forward = unfused
     try:
         yield record
         if gates is not None and next(gates, None) is not None:
@@ -1618,8 +1672,8 @@ def trainer_probe(kc):
         return make
 
     def eval_step(orig):
-        def make(model, with_metrics=True):
-            step = orig(model, with_metrics)
+        def make(model, with_metrics=True, **kwargs):
+            step = orig(model, with_metrics, **kwargs)
 
             def run(state, batch):
                 metrics, ms = synced_ms(step, state, batch)
@@ -2780,6 +2834,731 @@ def check_separable(mt, kc) -> dict:
     return out
 
 
+# ---- phase 11: data parallelism over torch.distributed ----
+
+PARALLEL_WORLD = 2
+# the equivalence check: the narrow float32 road preset, a global batch of
+# 4 at 128 px, two steps
+PARALLEL_EQ_BATCH, PARALLEL_EQ_SIZE, PARALLEL_EQ_STEPS = 4, 128, 2
+# the full-width run: the trainer phase's road preset (bf16) at its 0.4
+# bucket of a 1080p frame, 4 images a rank
+PARALLEL_HW, PARALLEL_RANK_BATCH = (416, 768), 4
+PARALLEL_WARMUP, PARALLEL_STEPS = 2, 5
+# the serving mesh: two replicas on the one card, a batch that pads; the
+# model outputs of its shards against the whole batch's within this share
+# of each output's largest value (bf16 convolutions, other cuDNN algorithms
+# at another batch size)
+MESH_BATCH = 15
+MESH_HEADS_RTOL = 5e-2
+
+
+def spawn_ranks(target, args=(), world=PARALLEL_WORLD, timeout=600.0):
+    """``target(rank, world, port, *args)`` in ``world`` spawned processes
+    (a module-level function of this script, which the ranks import again)
+    -> each rank's result in rank order (``start_ranks`` and its
+    ``collect``)."""
+    return start_ranks(target, args, world)(timeout)
+
+
+def free_ports(n: int) -> list:
+    """``n`` distinct free TCP ports on localhost (their sockets held open
+    together while they are picked)."""
+    import socket
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for sock in socks:
+            sock.bind(('localhost', 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
+
+
+def start_ranks(target, args=(), world=PARALLEL_WORLD, port=None):
+    """Start ``spawn_ranks``' processes (their rendezvous at ``port``, a
+    free one by default) and return ``collect(timeout)``,
+    which waits for them: each rank's result in rank order; a rank's error
+    raises there with its traceback. Every process is joined or, after an
+    error, ended. Arguments and results cross as ``torch.save`` bytes: a
+    tensor put on a queue as itself lives in its sender's shared memory,
+    gone once the rank exits."""
+    import multiprocessing as mp
+    ctx = mp.get_context('spawn')
+    queue = ctx.Queue()
+    port = port or free_ports(1)[0]
+    packed = _pack(args)
+    # daemons: a rank left behind by a failure elsewhere ends with this
+    # process
+    procs = [ctx.Process(target=_rank_entry,
+                         args=(target, r, world, port, packed, queue),
+                         daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+
+    def collect(timeout=600.0):
+        got, errors = {}, []
+        try:
+            # drain before joining: a rank blocks on a full pipe otherwise
+            for _ in procs:
+                r, out, error = queue.get(timeout=timeout)
+                if error is not None:
+                    errors.append(f'rank {r}:\n{error}')
+                    break
+                got[r] = _unpack(out)
+        finally:
+            for p in procs:
+                p.join(timeout=30 if not errors else 5)
+                if p.is_alive():
+                    p.terminate()
+                    p.join()
+        if errors:
+            raise AssertionError('a rank failed: ' + errors[0])
+        return [got[r] for r in range(world)]
+    return collect
+
+
+def _pack(value) -> bytes:
+    import io
+    buf = io.BytesIO()
+    torch.save(value, buf)
+    return buf.getvalue()
+
+
+def _unpack(data: bytes):
+    import io
+    return torch.load(io.BytesIO(data), weights_only=False)
+
+
+def _rank_entry(target, r, world, port, packed, queue):
+    import traceback
+    try:
+        queue.put((r, _pack(target(r, world, port, *_unpack(packed))),
+                   None))
+    except BaseException:  # noqa: BLE001 - reported to the parent
+        queue.put((r, None, traceback.format_exc()))
+
+
+def _joined(r, world, port, device):
+    """Join the group as rank ``r`` on ``device`` with TF32 off, as the
+    parent runs; -> the device."""
+    from masklab_tpu_torch.parallel import initialize
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return initialize(f'localhost:{port}', world, r, device=device)
+
+
+def parallel_eq_config(mt):
+    """The narrow float32 road preset (seresnet34: BatchNorm, squeeze-excite
+    heads)."""
+    cfg = narrow(road_config(mt))
+    cfg.compute.compute_dtype = 'float32'
+    return cfg
+
+
+def parallel_run(mt, cfg, batch, dev, decided=None, ranks=None) -> dict:
+    """PARALLEL_EQ_STEPS train steps of ``cfg``'s model (seed 2) on ``dev``
+    from ``batch`` (the global batch; this rank's rows under ``ranks``),
+    each step on the decisions ``decided[i]`` (``fixed_decisions``, the
+    rank's rows) or, without, recording its own -> {'steps': per step
+    {name: value} as ``_train_step_run`` names them, 'decided': each step's
+    decisions (the witness's), 'slack', 'params': the last parameters}."""
+    from masklab_tpu_torch import parallel, train
+    model = mt.build_masklab(cfg, device=dev, seed=2)
+    state = train.TrainState(model, train.rectified_adam(
+        train.cyclic_lr(1e-4, 1e-3, 700)))
+    part = None
+    if ranks is not None:
+        parallel.replicate_state(state, ranks)
+        batch = parallel.shard_batch(batch, ranks)
+        part = (ranks.rank, ranks.world)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    step = train.make_train_step(model, with_metrics=False, ranks=ranks)
+    out = dict(steps=[], decided=[], held=[])
+    for i in range(PARALLEL_EQ_STEPS):
+        start = {k: v.detach().clone() for k, v in model.named_parameters()}
+        with fixed_decisions(None if decided is None else decided[i],
+                             part=part, fused=True) as record:
+            state, metrics = step(state, batch)
+        out['decided'].append(record)
+        out['held'].append(record['held'])
+        values = {f'loss:{k}': v for k, v in metrics.items()}
+        values.update({f'grad:{k}': v for k, v in state.opt_state.mu.items()})
+        values.update({f'change:{k}': v.detach() - start[k]
+                       for k, v in model.named_parameters()})
+        values.update({f'stats:{k}': v for k, v in state.batch_stats.items()})
+        values.update({f'box:{j}': t
+                       for j, t in enumerate(state.box_loss_state)})
+        out['steps'].append({k: v.detach().cpu().double()
+                             for k, v in values.items()})
+    out['slack'] = {f'change:{k}': float(2 * np.spacing(np.float32(
+        v.abs().max().item()))) for k, v in model.named_parameters()}
+    out['params'] = {k: v.detach().cpu() for k, v in
+                     list(model.named_parameters())
+                     + list(model.named_buffers())}
+    if decided is not None:
+        out.pop('decided')
+    return out
+
+
+def _equivalence_rank(r, world, port, device, batch, decided):
+    import masklab_tpu_torch as mt
+    import torch.distributed as dist
+    from masklab_tpu_torch.parallel import data_ranks
+    dev = _joined(r, world, port, device)
+    try:
+        return parallel_run(mt, parallel_eq_config(mt), batch, dev, decided,
+                            data_ranks())
+    finally:
+        dist.destroy_process_group()
+
+
+def check_parallel_equivalence(mt, rng) -> dict:
+    """Two gloo ranks on the card against one process on the card, the same
+    global batch, PARALLEL_EQ_STEPS steps of the narrow float32 road preset;
+    every run takes the one-process card run's loss-NMS proposals and ReLU
+    gates, those K1 would fuse into the heads' GroupNorms too, its targets
+    held to that run's (``fixed_decisions``, each rank its rows): a gate
+    within float error of 0 in a mask head's map flips between the runs'
+    summation orders and moves a gradient ~9x the yardstick. Each tensor of each step (loss terms, gradients, parameter
+    changes, BatchNorm statistics, box state) of the card's pair within
+    TRAIN_REF_RATIO x the same pair's distance on the CPU (two gloo ranks
+    on the CPU against one CPU process), plus TRAIN_REF_FLOOR of the
+    tensor's largest entry (and the parameter changes' 2 ulps): the CPU's
+    own float32 distance between the two summation orders is the
+    yardstick, as ``check_train_reference``'s. The two ranks' parameters,
+    statistics and box state equal bit for bit, on the card and on the
+    CPU."""
+    from masklab_tpu_torch import train
+    from masklab_tpu_torch.data import make_random_batch
+    cfg = parallel_eq_config(mt)
+    batch = train.as_batch(make_random_batch(
+        PARALLEL_EQ_BATCH, (PARALLEL_EQ_SIZE, PARALLEL_EQ_SIZE), 4,
+        num_det_classes=len(cfg.dataset.instance_labels),
+        num_seg_classes=len(cfg.dataset.semantic_labels),
+        seed=int(rng.randint(1 << 30))), 'cpu')
+    start = time.perf_counter()
+    witness = parallel_run(mt, cfg, batch, DEVICE)
+    decided = witness.pop('decided')
+    # the two pairs of ranks run while this process runs the CPU's one;
+    # each pair has a rendezvous port of its own
+    collects = {name: start_ranks(_equivalence_rank, (dev, batch, decided),
+                                  port=port)
+                for name, dev, port in zip(('card', 'cpu'), (DEVICE, 'cpu'),
+                                           free_ports(2))}
+    cpu_one = parallel_run(mt, cfg, batch, 'cpu', decided)
+    pairs = {name: collect() for name, collect in collects.items()}
+    for dev, (a, b) in pairs.items():
+        for k, v in a['params'].items():
+            if not torch.equal(v, b['params'][k]):
+                raise AssertionError(f'parallel ({dev}): the ranks differ '
+                                     f'at {k}')
+        for sa, sb in zip(a['steps'], b['steps']):
+            for k in sa:
+                if k.startswith(('stats:', 'box:', 'change:')) and \
+                        not torch.equal(sa[k], sb[k]):
+                    raise AssertionError(f'parallel ({dev}): the ranks '
+                                         f'differ at {k}')
+    readings, worst = [], {}
+    for i, want in enumerate(witness['steps']):
+        card = pairs['card'][0]['steps'][i]
+        cpu2, cpu1 = pairs['cpu'][0]['steps'][i], cpu_one['steps'][i]
+        step = {}
+        for k, w in want.items():
+            err = (card[k] - w).abs().max().item()
+            yard = (cpu2[k] - cpu1[k]).abs().max().item()
+            limit = (TRAIN_REF_RATIO * yard + TRAIN_REF_FLOOR
+                     * w.abs().max().item() + witness['slack'].get(k, 0.0))
+            step[k] = err / max(limit, 1e-30)
+        readings.append(_reading_summary(step))
+        bad = {g: v for g, v in readings[-1].items() if not v['max'] <= 1.0}
+        if bad:
+            raise AssertionError(f'parallel equivalence, step {i + 1}: the '
+                                 f'card outside its bound {bad}')
+        for g, v in readings[-1].items():
+            worst[g] = max(worst.get(g, 0.0), v['max'])
+    return dict(config='narrow road seresnet34 float32, global b4@128, '
+                       f'{PARALLEL_EQ_STEPS} steps, 2 gloo ranks on one card',
+                readings=readings, worst=worst,
+                held=[r['held'] for r in pairs['card']],
+                losses=[{k[5:]: v.item() for k, v in s.items()
+                         if k.startswith('loss:')}
+                        for s in witness['steps']],
+                seconds=time.perf_counter() - start)
+
+
+def parallel_road_config(mt):
+    """The trainer phase's road preset: full width, bf16."""
+    cfg = mt.road_project_config()
+    cfg.compute.compute_dtype = 'bfloat16'
+    return cfg
+
+
+def _fullwidth_rank(r, world, port, spread=False):
+    """One rank of the full-width run, through the multihost worker's
+    library, on card 0 (``spread``: on card ``r``): PARALLEL_WARMUP steps,
+    then PARALLEL_STEPS counted ones (host ms between synchronizations,
+    kernel launches from 0 before each, the losses), the peak memory, one
+    traced step (its ``stage:`` spans and the collectives' host time), the
+    parameters' digest."""
+    import hashlib
+    import masklab_tpu_torch as mt
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from masklab_tpu_torch.ops import cuda as kc
+    from masklab_tpu_torch.parallel import multihost
+    dev = _joined(r, world, port, f'{DEVICE}:{r if spread else 0}'
+                  if DEVICE == 'cuda' else DEVICE)
+    try:
+        state, step, batch = multihost.setup_step(
+            parallel_road_config(mt), PARALLEL_HW, PARALLEL_RANK_BATCH, dev)
+        for _ in range(PARALLEL_WARMUP):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts, losses = [], [], []
+        for _ in range(PARALLEL_STEPS):
+            kc.reset_launch_counts()
+            start = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - start) * 1e3)
+            counts.append(kc.launch_counts())
+            losses.append(metrics['loss'].item())
+        peak = torch.cuda.max_memory_allocated()
+        warm_profiler()
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - start) * 1e3
+        cuda = torch.autograd.DeviceType.CUDA
+        host = [e for e in prof.events() if e.device_type != cuda]
+        collective = [(e.time_range.end - e.time_range.start) / 1e3
+                      for e in host if e.name == 'collective:all_reduce']
+        spans = {e.name[6:]: (e.time_range.end - e.time_range.start) / 1e3
+                 for e in host if e.name.startswith('stage:')}
+        digest = hashlib.sha256()
+        for k, v in state.model.state_dict().items():
+            digest.update(k.encode())
+            digest.update(v.detach().cpu().contiguous().view(
+                torch.uint8).numpy().tobytes())
+        return dict(step_ms=times, launches_per_step=counts, losses=losses,
+                    peak_memory_bytes=peak, traced_ms=traced_ms,
+                    collective_ms=sum(collective),
+                    collectives=len(collective), stages_host_ms=spans,
+                    backend=dist.get_backend(), digest=digest.hexdigest())
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_fullwidth(mt) -> dict:
+    """Two gloo ranks on the card, each through the multihost worker's
+    library (``setup_step``): the road preset as the trainer phase runs
+    it, global batch 8 = 2 x 4 at PARALLEL_HW (K2 at [4, 5, 99540] a rank).
+    Every loss finite; K1, K1's backward, K2 and K3 launched in every
+    counted step on each rank; the ranks' parameters and statistics equal
+    bit for bit after the last step. Then the worker itself at world size
+    1 over NCCL (``python -m masklab_tpu_torch.parallel.multihost``)."""
+    start = time.perf_counter()
+    ranks = spawn_ranks(_fullwidth_rank)
+    for r, res in enumerate(ranks):
+        if res['backend'] != 'gloo':
+            raise AssertionError(f'rank {r}: backend {res["backend"]}')
+        if not all(np.isfinite(res['losses'])):
+            raise AssertionError(f'rank {r}: losses {res["losses"]}')
+        for i, c in enumerate(res['launches_per_step']):
+            for name in TRAINER_KERNELS:
+                if c[name] == 0:
+                    raise AssertionError(f'rank {r} step {i}: {name} not '
+                                         'launched')
+    if ranks[0]['digest'] != ranks[1]['digest']:
+        raise AssertionError('parallel: the ranks\' parameters differ after '
+                             'the last step')
+    if ranks[0]['losses'] != ranks[1]['losses']:
+        raise AssertionError(f'parallel: the ranks report other losses '
+                             f'{ranks[0]["losses"]} {ranks[1]["losses"]}')
+    pair_ms = [max(a, b) for a, b in zip(ranks[0]['step_ms'],
+                                         ranks[1]['step_ms'])]
+    share = [res['collective_ms'] / res['traced_ms'] for res in ranks]
+    seconds = time.perf_counter() - start
+    port = free_ports(1)[0]
+    start = time.perf_counter()
+    worker = subprocess.run(
+        [sys.executable, '-m', 'masklab_tpu_torch.parallel.multihost',
+         f'--coordinator=localhost:{port}', '--num_processes=1',
+         '--process_id=0', '--shape=road', f'--device={DEVICE}'],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    backend = 'nccl' if DEVICE == 'cuda' else 'gloo'
+    if (worker.returncode != 0 or f'backend {backend}' not in worker.stdout
+            or 'MULTIHOST_OK' not in worker.stdout):
+        raise AssertionError(f'multihost worker over {backend}: rc '
+                             f'{worker.returncode}\n{worker.stdout[-2000:]}'
+                             f'\n{worker.stderr[-2000:]}')
+    return dict(
+        config=f'road seresnet34 bf16, 2 gloo ranks x b{PARALLEL_RANK_BATCH}'
+               f' on one card, {PARALLEL_HW[0]}x{PARALLEL_HW[1]}',
+        anchors=trainer_row_lengths(mt)[0.4],
+        ms_per_step={r: statistics.median(res['step_ms'])
+                     for r, res in enumerate(ranks)},
+        step_ms=[res['step_ms'] for res in ranks],
+        img_per_s=PARALLEL_WORLD * PARALLEL_RANK_BATCH * PARALLEL_STEPS
+        / (sum(pair_ms) / 1e3),
+        collective_share=share,
+        collective_ms=[res['collective_ms'] for res in ranks],
+        collectives=ranks[0]['collectives'],
+        stages_host_ms=[res['stages_host_ms'] for res in ranks],
+        traced_ms=[res['traced_ms'] for res in ranks],
+        peak_memory_bytes=[res['peak_memory_bytes'] for res in ranks],
+        backend=ranks[0]['backend'], losses=ranks[0]['losses'],
+        launches_per_step=[res['launches_per_step'] for res in ranks],
+        launches={k: sum(c[k] for res in ranks
+                         for c in res['launches_per_step'])
+                  for k in ranks[0]['launches_per_step'][0]},
+        seconds=seconds,
+        nccl_worker=dict(line=[ln for ln in worker.stdout.splitlines()
+                               if 'MULTIHOST_OK' in ln][0],
+                         seconds=time.perf_counter() - start))
+
+
+def _shard_rows(out: dict, sl: slice) -> dict:
+    return {k: v[sl] for k, v in out.items()}
+
+
+def mesh_heads_gap(base, images, padded) -> dict:
+    """The model's outputs (``raw_heads``: cls_pred, loc_pred, seg_pred) of
+    the mesh's two shards against the same rows of the whole batch, on
+    ``base``'s model: each as its largest difference over its largest
+    |value|."""
+    with torch.inference_mode():
+        def heads(frames):
+            x = torch.from_numpy(np.ascontiguousarray(frames)).to(DEVICE)
+            return base.model.raw_heads(base._downsample(x)[0])
+        whole = heads(images)
+        parts = [heads(images[:8]), heads(padded)]
+        out = {}
+        for k in ('cls_pred', 'loc_pred', 'seg_pred'):
+            shard = torch.cat([parts[0][k], parts[1][k][:7]]).float()
+            want = whole[k].float()
+            out[k] = ((shard - want).abs().max()
+                      / want.abs().max().clamp_min(1e-30)).item()
+    return out
+
+
+def check_serving_mesh(mt, kc, rng) -> dict:
+    """The headline predictor (bf16, forced dense, 512 px) over
+    ``make_mesh(data=2, devices=['cuda:0', 'cuda:0'])``, a batch of
+    MESH_BATCH (padded to 16: shards of 8 and 7 + a zero frame). In each
+    mode, with its launches counted from 0 before the request: the answers
+    equal the unsharded predictor's on the same shards exactly (the second
+    with the zero frame, dropped). Against the whole batch (other cuDNN
+    algorithms at another batch size: PERF.md section 6): the shards'
+    model outputs within MESH_HEADS_RTOL of the whole batch's
+    (``mesh_heads_gap``); what follows them is reported, not held, as the
+    share of detection slots, analytics rows and frame pixels that agree
+    (forced dense, every score saturates, so NMS's order among near-equal
+    scores and masks at 0.5 follow the last bits). Then img/s and p50 of REQUESTS visualize requests of 16
+    frames on 2 replicas and on 1; then a ``CheckpointWatcher`` swap: both
+    replicas rebuilt, each serving the new checkpoint (the unsharded
+    predictor's answers on it, shard by shard)."""
+    import tempfile
+    from masklab_tpu_torch.parallel import make_mesh
+    from masklab_tpu_torch.serving.batching import CheckpointWatcher
+    cfg = headline_config(mt)
+    model = mt.force_dense(mt.build_masklab(cfg, device='cpu', seed=0))
+    mesh = make_mesh(data=2, devices=[f'{DEVICE}:0'] * 2
+                     if DEVICE == 'cuda' else ['cpu'] * 2)
+    sharded = mt.MaskLabPredictor(model, cfg, mesh=mesh)
+    base = mt.MaskLabPredictor(model, cfg, device=DEVICE)
+    images = rng.randint(0, 256, (MESH_BATCH, SIZE, SIZE, 3)).astype(np.uint8)
+    padded = np.concatenate([images[8:], np.zeros_like(images[:1])])
+    max_out = cfg.detection.nms_max_output_size
+    heads = mesh_heads_gap(base, images, padded)
+    bad = {k: v for k, v in heads.items() if not v <= MESH_HEADS_RTOL}
+    if bad:
+        raise AssertionError(f'serving mesh: the shards\' model outputs '
+                             f'against the whole batch\'s {bad}')
+    modes, launches = {}, {}
+    for mode in MODES:
+        sharded.predict(images[:2], mode)                 # warm-up
+        torch.cuda.synchronize()
+        kc.reset_launch_counts()
+        out = sharded.predict(images, mode)
+        counts = kc.launch_counts()
+        for name, per_forward in PER_FORWARD.items():
+            if counts[name] < per_forward * 2:
+                raise AssertionError(f'serving mesh {mode}: {name} launched '
+                                     f'{counts[name]} times in 2 forwards')
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check_outputs(out, mode, MESH_BATCH, max_out)
+        shards = [base.predict(images[:8], mode),
+                  _shard_rows(base.predict(padded, mode), slice(0, 7))]
+        for k in out:
+            want = np.concatenate([s[k] for s in shards])
+            if not np.array_equal(out[k], want):
+                raise AssertionError(f'serving mesh {mode}: {k} differs from '
+                                     'the unsharded predictor on its shards')
+        whole = base.predict(images, mode)
+        g, w = out['det_boxes'], whole['det_boxes']
+        same = ((np.abs(g.astype(np.int64) - w).max(-1) <= 1)
+                & (g[..., 4] == w[..., 4]))
+        gap = dict(slots_equal=float(same.mean()))
+        if 'summarize' in out:
+            rows = np.abs(out['summarize'] - whole['summarize']) <= 1e-3 + \
+                1e-3 * np.abs(whole['summarize'])
+            gap['analytics_rows_equal'] = float(rows.all(-1).mean())
+        if 'visualize' in out:
+            gap['frame_pixels_changed'] = float(
+                (out['visualize'] != whole['visualize']).any(-1).mean())
+        modes[mode] = dict(exact_against_shards=True, whole_batch_gap=gap,
+                           launches=counts)
+    timing = {}
+    frames = [rng.randint(0, 256, (16, SIZE, SIZE, 3)).astype(np.uint8)
+              for _ in range(REQUESTS)]
+    for name, pred in (('2 replicas', sharded), ('1 replica', base)):
+        pred.predict(frames[0], 'visualize')
+        lat = []
+        for f in frames:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred.predict(f, 'visualize')
+            lat.append((time.perf_counter() - t0) * 1e3)
+        timing[name] = dict(img_per_s=16 * REQUESTS / (sum(lat) / 1e3),
+                            p50_ms=statistics.median(lat), latencies_ms=lat)
+    root = tempfile.mkdtemp(prefix='chip_smoke_mesh-')
+    try:
+        save_deploy_checkpoint(mt, cfg, root, seed=3, loss=0.5)
+        before = sharded.model
+        start = time.perf_counter()
+        if not CheckpointWatcher(sharded, root).check_once():
+            raise AssertionError('serving mesh: the watcher swapped nothing')
+        swap_ms = (time.perf_counter() - start) * 1e3
+        if (len(sharded.model) != 2 or sharded.model[0] is sharded.model[1]
+                or any(a is b for a, b in zip(sharded.model, before))):
+            raise AssertionError('serving mesh: the swap did not rebuild '
+                                 'both replicas')
+        del before
+        fresh = mt.MaskLabPredictor(mt.force_dense(mt.build_masklab(
+            cfg, device='cpu', seed=3)), cfg, device=DEVICE)
+        out = sharded.predict(images, 'summarize')
+        want = [fresh.predict(images[:8], 'summarize'),
+                _shard_rows(fresh.predict(padded, 'summarize'), slice(0, 7))]
+        for k in out:
+            if not np.array_equal(out[k], np.concatenate([w[k]
+                                                          for w in want])):
+                raise AssertionError(f'serving mesh: after the swap {k} is '
+                                     'not the new checkpoint\'s')
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    del sharded, base
+    torch.cuda.empty_cache()
+    return dict(config='headline mobilenet bf16 forced dense 512 px, mesh '
+                       f'2 x cuda:0, batch {MESH_BATCH} padded to 16',
+                heads_gap=heads, modes=modes, timing=timing,
+                swap_ms=swap_ms,
+                launches=launches)
+
+
+def run_parallel(mt, kc) -> dict:
+    """Phase 11, its lines printed: the equivalence check, the full-width
+    run, the serving mesh; its inputs from a generator of its own."""
+    rng = np.random.RandomState(11)
+    out = dict(equivalence=check_parallel_equivalence(mt, rng))
+    eq = out['equivalence']
+    print(f'parallel equivalence: {eq["config"]}: the card\'s 2 ranks vs 1 '
+          f'process within {TRAIN_REF_RATIO:g}x the CPU\'s own distance '
+          f'(worst reading by group {json.dumps(eq["worst"])}); the ranks '
+          f'bitwise equal on the card and on the CPU; held targets '
+          f'{json.dumps(eq["held"])}; {eq["seconds"]:.1f} s', flush=True)
+    out['fullwidth'] = fw = parallel_fullwidth(mt)
+    print(f'parallel: {fw["config"]}, backend {fw["backend"]}: ms a step by '
+          f'rank {json.dumps(fw["ms_per_step"])} (steps '
+          f'{json.dumps([[round(t, 2) for t in s] for s in fw["step_ms"]])}),'
+          f' {fw["img_per_s"]:.2f} img/s the pair, collectives '
+          f'{[round(s, 3) for s in fw["collective_share"]]} of a traced step '
+          f'({fw["collectives"]} all-reduces, host ms '
+          f'{[round(m, 2) for m in fw["collective_ms"]]} of '
+          f'{[round(m, 2) for m in fw["traced_ms"]]}; spans '
+          f'{json.dumps(fw["stages_host_ms"][0])}), peak memory '
+          f'{[round(b / 2**30, 2) for b in fw["peak_memory_bytes"]]} GiB a '
+          f'rank, losses {json.dumps(fw["losses"])}, launches per step '
+          f'{json.dumps(fw["launches_per_step"][0][-1])} on each rank, K2 '
+          f'at [{PARALLEL_RANK_BATCH}, 5, {fw["anchors"]}], ranks bitwise '
+          f'equal; {fw["seconds"]:.1f} s; NCCL worker: '
+          f'{fw["nccl_worker"]["line"]} ({fw["nccl_worker"]["seconds"]:.1f} '
+          's)', flush=True)
+    out['serving_mesh'] = sm = check_serving_mesh(mt, kc, rng)
+    print(f'serving mesh: {sm["config"]}: every mode exact against the '
+          f'unsharded shards; model outputs against the whole batch\'s '
+          f'{json.dumps(sm["heads_gap"])} (bound {MESH_HEADS_RTOL:g}); '
+          f'after NMS against the whole batch '
+          f'{json.dumps({m: v["whole_batch_gap"] for m, v in sm["modes"].items()})}'
+          f'; {json.dumps({k: [round(v["img_per_s"], 2), round(v["p50_ms"], 2)] for k, v in sm["timing"].items()})}'
+          f' (img/s, p50 ms, visualize b16); swap {sm["swap_ms"]:.2f} ms, '
+          f'both replicas rebuilt', flush=True)
+    return out
+
+
+# ---- --multi-card: data parallelism over several cards (NCCL) ----
+
+# the CLI trainer over every card: synthetic frames at half of 1080p, two
+# images a rank, one epoch of 2 steps a phase
+MULTI_FRAMES, MULTI_HW = 24, (540, 960)
+
+
+def multi_card_step(mt, n: int) -> dict:
+    """The full-width parallel step (``_fullwidth_rank``) over ``n`` ranks,
+    one card each (NCCL), against one rank alone: ms a step, img/s, the
+    collectives' share of a traced step, the ranks bitwise equal, the
+    kernels launched in every step on each rank."""
+    runs = {}
+    for world in (1, n):
+        ranks = spawn_ranks(_fullwidth_rank, (True,), world=world)
+        for r, res in enumerate(ranks):
+            if res['backend'] != ('nccl' if DEVICE == 'cuda' else 'gloo'):
+                raise AssertionError(f'{world} ranks: backend '
+                                     f'{res["backend"]}')
+            if not all(np.isfinite(res['losses'])):
+                raise AssertionError(f'rank {r}: losses {res["losses"]}')
+            for i, c in enumerate(res['launches_per_step']):
+                for name in TRAINER_KERNELS:
+                    if c[name] == 0:
+                        raise AssertionError(f'{world} ranks, rank {r} step '
+                                             f'{i}: {name} not launched')
+        if len({res['digest'] for res in ranks}) != 1:
+            raise AssertionError(f'{world} ranks: the parameters differ')
+        step_ms = [max(t) for t in zip(*(res['step_ms'] for res in ranks))]
+        runs[world] = dict(
+            ms_per_step=statistics.median(step_ms), step_ms=step_ms,
+            img_per_s=world * PARALLEL_RANK_BATCH * len(step_ms)
+            / (sum(step_ms) / 1e3),
+            collective_share=[res['collective_ms'] / res['traced_ms']
+                              for res in ranks],
+            peak_memory_bytes=max(res['peak_memory_bytes'] for res in ranks),
+            launches={k: sum(c[k] for res in ranks
+                             for c in res['launches_per_step'])
+                      for k in ranks[0]['launches_per_step'][0]})
+    runs['scaling'] = runs[n]['img_per_s'] / (n * runs[1]['img_per_s'])
+    return runs
+
+
+def multi_card_trainer(mt, n: int) -> dict:
+    """``cli train --preset=road -compute.mesh_data n`` (bf16, batch 2n)
+    over synthetic MULTI_HW frames: ``train_masklab_model`` runs one rank a
+    card (this process rank 0); rank 0's run directory holds metrics.csv
+    (one finite row a phase), a checkpoint a phase and its eval.json."""
+    import csv
+    import shutil
+    import tempfile
+    from masklab_tpu_torch import cli
+    from masklab_tpu_torch.data import make_synthetic_dataset
+    from masklab_tpu_torch.train import trainer as tr
+    root = tempfile.mkdtemp(prefix='chip_smoke_multi-')
+    spawned = []
+    original = tr._train_on_devices
+
+    def recording(config, devices, kwargs):
+        spawned.append(list(devices))
+        return original(config, devices, kwargs)
+    try:
+        data_dir, logs = os.path.join(root, 'data'), os.path.join(root, 'logs')
+        make_synthetic_dataset(data_dir, num_images=MULTI_FRAMES,
+                               image_hw=MULTI_HW, seed=0)
+        cli.main(['etl', f'-dataset.data_dir={data_dir}'])
+        args = [a if a != '8' else str(2 * n) for a in TRAINER_ARGS]
+        tr._train_on_devices = recording
+        start = time.perf_counter()
+        try:
+            cli.main(['train', *args, '-compute.mesh_data', str(n),
+                      '-dataset.data_dir', data_dir, '-train.save_dir', logs])
+        finally:
+            tr._train_on_devices = original
+        seconds = time.perf_counter() - start
+        if spawned != [[f'cuda:{r}' for r in range(n)]]:
+            raise AssertionError(f'multi-card trainer: ranks {spawned}')
+        run_dir = os.path.join(logs, os.listdir(logs)[0])
+        with open(os.path.join(run_dir, 'metrics.csv')) as f:
+            rows = list(csv.DictReader(f))
+        names = [m for m in os.listdir(run_dir) if m[0].isdigit()]
+        if (len(rows) != len(TRAINER_PHASES) or len(names) != len(rows)
+                or not all(np.isfinite(float(v)) for row in rows
+                           for v in row.values())
+                or not os.path.exists(os.path.join(run_dir, 'eval.json'))):
+            raise AssertionError(f'multi-card trainer: {rows} {names}')
+        return dict(ranks=spawned[0], seconds=seconds,
+                    losses=[float(row['loss']) for row in rows],
+                    val_losses=[float(row['val_loss']) for row in rows])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def multi_card_mesh(mt, rng, n: int) -> dict:
+    """The headline predictor (bf16, forced dense, 512 px) over a mesh of
+    every card (one replica each) against one replica: the answers exact
+    against the unsharded predictor on the same shards, img/s and p50 of
+    REQUESTS visualize requests of 16 frames each way."""
+    from masklab_tpu_torch.parallel import make_mesh
+    cfg = headline_config(mt)
+    model = mt.force_dense(mt.build_masklab(cfg, device='cpu', seed=0))
+    sharded = mt.MaskLabPredictor(model, cfg, mesh=make_mesh())
+    base = mt.MaskLabPredictor(model, cfg, device=DEVICE)
+    frames = [rng.randint(0, 256, (16, SIZE, SIZE, 3)).astype(np.uint8)
+              for _ in range(REQUESTS)]
+    rows = -(-16 // n)
+    for mode in MODES:
+        out = sharded.predict(frames[0], mode)
+        for i in range(n):
+            want = base.predict(frames[0][i * rows:(i + 1) * rows], mode)
+            for k, v in want.items():
+                if not np.array_equal(out[k][i * rows:(i + 1) * rows], v):
+                    raise AssertionError(f'multi-card mesh {mode}: {k} of '
+                                         f'shard {i} differs')
+    timing = {}
+    for name, pred in ((f'{n} replicas', sharded), ('1 replica', base)):
+        pred.predict(frames[0], 'visualize')
+        lat = []
+        for f in frames:
+            t0 = time.perf_counter()
+            pred.predict(f, 'visualize')
+            lat.append((time.perf_counter() - t0) * 1e3)
+        timing[name] = dict(img_per_s=16 * REQUESTS / (sum(lat) / 1e3),
+                            p50_ms=statistics.median(lat))
+    return timing
+
+
+def run_multi_card(mt) -> dict:
+    """--multi-card: the parallel step, the CLI trainer and the serving
+    mesh over every card present (two at least), their lines printed."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        raise AssertionError(f'--multi-card needs two cards at least, has {n}')
+    out = dict(cards=n, step=multi_card_step(mt, n))
+    st = out['step']
+    print(f'multi-card step: {n} NCCL ranks, one a card (road seresnet34 '
+          f'bf16, b{PARALLEL_RANK_BATCH} a rank at {PARALLEL_HW[0]}x'
+          f'{PARALLEL_HW[1]}): {st[n]["ms_per_step"]:.2f} ms a step, '
+          f'{st[n]["img_per_s"]:.2f} img/s, collectives '
+          f'{[round(x, 3) for x in st[n]["collective_share"]]} of a traced '
+          f'step; 1 rank {st[1]["ms_per_step"]:.2f} ms, '
+          f'{st[1]["img_per_s"]:.2f} img/s; scaling {st["scaling"]:.3f}; '
+          f'peak {st[n]["peak_memory_bytes"] / 2**30:.2f} GiB a rank; the '
+          'ranks bitwise equal, every kernel in every step', flush=True)
+    out['trainer'] = tt = multi_card_trainer(mt, n)
+    print(f'multi-card trainer: cli train -compute.mesh_data {n} on '
+          f'{tt["ranks"]}: losses {json.dumps(tt["losses"])}, val '
+          f'{json.dumps(tt["val_losses"])}, {tt["seconds"]:.1f} s', flush=True)
+    out['mesh'] = multi_card_mesh(mt, np.random.RandomState(12), n)
+    print(f'multi-card mesh: exact against the unsharded shards; '
+          f'{json.dumps(out["mesh"])} (visualize b16)', flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernels-only', action='store_true',
@@ -2794,6 +3573,13 @@ def main() -> int:
     parser.add_argument('--deploy-only', action='store_true',
                         help="card, build, K2 at the default deployment's "
                         'row, and phases 8-10 only')
+    parser.add_argument('--parallel-only', action='store_true',
+                        help='card, build and phase 11 (data parallelism) '
+                        'only')
+    parser.add_argument('--multi-card', action='store_true',
+                        help='card, build, and data parallelism over every '
+                        'card present (two at least): NCCL ranks, the CLI '
+                        'trainer, the serving mesh')
     parser.add_argument('--reference-draws', type=int, default=0,
                         metavar='N', help='card, build and '
                         'check_train_reference at the batch seeds of '
@@ -2831,6 +3617,12 @@ def main() -> int:
         return 0
     if args.deploy_only:
         finish(card, run_deployment(mt, kc))
+        return 0
+    if args.parallel_only:
+        finish(card, {'parallel': run_parallel(mt, kc)})
+        return 0
+    if args.multi_card:
+        finish(card, {'multi_card': run_multi_card(mt)})
         return 0
     if args.trainer_only:
         k2 = check_k2(kc, rng, False)
@@ -2896,11 +3688,14 @@ def main() -> int:
     print(f'kernel band_groupnorm_backward at the train maps: '
           f'{json.dumps(k1b["train_maps"])}', flush=True)
     deployed = run_deployment(mt, kc)
+    parallel = run_parallel(mt, kc)
     trainer = run_trainer(mt, kc, rng)
     paths = dict(serve, train=trained, trainer=dict(
         launches={k: sum(c[k] for c in trainer['launches_per_step'])
                   for k in TRAINER_KERNELS}),
-        deployment=deployed['deployment'], separable=deployed['separable'])
+        deployment=deployed['deployment'], separable=deployed['separable'],
+        parallel=parallel['fullwidth'],
+        **{'serving mesh': parallel['serving_mesh']})
     for k in kernels:
         k['launches_by_path'] = {p: v['launches'][k['name']]
                                  for p, v in paths.items()}
@@ -2915,7 +3710,7 @@ def main() -> int:
     print(f'total: {time.perf_counter() - STARTED:.1f} s', flush=True)
     finish(card, {'kernels': kernels, 'serve': serve, 'train': trained,
                   'trainer': trainer, 'reference': reference, **deployed,
-                  **more})
+                  'parallel': parallel, **more})
     return 0
 
 

@@ -3,11 +3,13 @@
 The counterpart of ``masklab_tpu/cli.py``:
   * ``etl``     — process a labelled dataset (``data.process_dataset``);
   * ``train``   — config overrides via -group.attr flags, the 3-phase
-    trainer, then the mIoU eval of its best checkpoint;
+    trainer (one rank a card over ``compute.mesh_data`` cards where that
+    many are present), then the mIoU eval of its best checkpoint;
   * ``eval``    — the mIoU eval alone, of the best checkpoint in
     ``-train.save_dir``, with the model rebuilt from its config.json;
   * ``serve``   — the predictor of ``-train.save_dir`` over HTTP, with
-    micro-batching and checkpoint hot-reload;
+    micro-batching and checkpoint hot-reload (over a mesh of
+    ``--mesh-data=N`` cards);
   * ``process`` — annotate a folder of images;
   * ``export``  — refresh ``serving_config.json``, or write a versioned
     serving bundle.
@@ -143,10 +145,10 @@ def _build_predictor(cfg, save_dir, mesh_data: int = 0, device=None):
     ``serving_config.json`` where ``export`` wrote one, else from its
     ``config.json`` with ``cfg``'s postprocess (the serving knobs), else
     from ``cfg``. Without a checkpoint directory, seeded random weights
-    (``init_weights``, seed 0: smoke mode). ``mesh_data`` above the cards
-    present serves on one card, as the reference does with too few chips;
-    several cards present and asked for raise: data-parallel serving is
-    not ported (ROADMAP.md, Queue 1 item 5)."""
+    (``init_weights``, seed 0: smoke mode). ``mesh_data`` > 1 serves over
+    a mesh of that many cards (one replica each) where they are present;
+    above the cards present it serves on one, as the reference does with
+    too few chips."""
     import torch
     from .device import resolve_device
     from .models.masklab import MaskLab, build_masklab
@@ -154,16 +156,15 @@ def _build_predictor(cfg, save_dir, mesh_data: int = 0, device=None):
     from .train.checkpoints import CheckpointManager, load_variables
 
     device = resolve_device(device)
+    mesh = None
     if mesh_data and mesh_data > 1:
         n = torch.cuda.device_count() if device.type == 'cuda' else 1
         if n < mesh_data:
             print(f'WARNING: --mesh-data={mesh_data} but only {n} '
                   'device(s); serving single-device')
         else:
-            raise NotImplementedError(
-                f'--mesh-data={mesh_data}: data-parallel serving over '
-                f'{n} cards is not ported to PyTorch yet (ROADMAP.md, '
-                'Queue 1 item 5)')
+            from .parallel import make_mesh
+            mesh = make_mesh(data=mesh_data)
     if save_dir and os.path.isdir(save_dir):
         ckpt = CheckpointManager(save_dir, None)
         serving_cfg_path = os.path.join(save_dir, 'serving_config.json')
@@ -179,7 +180,8 @@ def _build_predictor(cfg, save_dir, mesh_data: int = 0, device=None):
         print('WARNING: no checkpoint dir, serving randomly-initialized '
               'weights (smoke mode)')
         model = build_masklab(cfg, device=device, seed=0)
-    return MaskLabPredictor(model, cfg, visualization=True, device=device)
+    return MaskLabPredictor(model, cfg, visualization=True, device=device,
+                            mesh=mesh)
 
 
 def build_server(args):

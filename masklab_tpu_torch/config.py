@@ -5,9 +5,9 @@ PyTorch port imports nothing of the JAX package. Configurations saved by
 either package load in the other. The ``compute`` group's TPU layout knobs
 (capacity ladder, model mesh) are accepted and ignored by the port; remat
 recomputes the backbone in the backward pass; ``mesh_data`` asks the trainer
-for data parallelism, which is not ported and raises where more than one
-card would take part; the fused mask head, which changes the model, raises
-where the reference builds it.
+for data parallelism over that many cards (clamped to those present); the
+fused mask head, which changes the model, raises where the reference builds
+it.
 
 Re-design of the reference's ``ModelConfiguration``
 (the reference engine/config.py:10-248): eight nested attribute groups with
@@ -219,7 +219,9 @@ class ComputeConfig:
     # MaskLab honours remat_backbone (torch.utils.checkpoint) and refuses
     # fused_mask_head where the reference would build FusedMaskSubNet; the
     # trainer clamps mesh_data to the cards present, as the reference
-    # clamps it to its devices, and refuses more than one.
+    # clamps it to its devices, and trains one rank a card
+    # (train/trainer.py); mesh_model is ignored, as the reference's trainer
+    # ignores it.
     mesh_data: int = 1
     mesh_model: int = 1
     remat_backbone: bool = False

@@ -10,13 +10,17 @@ only (it never touches the device; the trainer uploads):
     nearest-resized per slot;
   * ``MultiprocessLoader`` builds batches in spawned worker processes,
     ``PrefetchIterator`` in a background thread, overlapping host work with
-    the device.
+    the device;
+  * ``shard=(rank, world)``: a rank of a data-parallel trainer builds only
+    its rows of each global batch; every rank keeps the same shuffle and
+    the same scale draws.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Dict, Iterable, Iterator, Sequence, Union
+from typing import (Dict, Iterable, Iterator, Optional, Sequence, Tuple,
+                    Union)
 
 import cv2
 import numpy as np
@@ -29,7 +33,7 @@ class MaskLabGenerator:
                  scale_ratio=(0.4, 0.6), batch_size: int = 8,
                  shuffle: bool = True,
                  scale_buckets: Sequence[float] = (0.4, 0.45, 0.5, 0.55, 0.6),
-                 seed: int = 0):
+                 seed: int = 0, shard: Optional[Tuple[int, int]] = None):
         if isinstance(dataset, dict):
             self.dataset = MaskLabDataset(**dataset)
         elif isinstance(dataset, MaskLabDataset):
@@ -42,6 +46,10 @@ class MaskLabGenerator:
         self.scale_buckets = [s for s in scale_buckets if lo <= s <= hi] \
             or [lo]
         self.batch_size = batch_size
+        if shard is not None and batch_size % shard[1]:
+            raise ValueError(f'a batch of {batch_size} does not divide over '
+                             f'{shard[1]} ranks')
+        self.shard = shard
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
         self.on_epoch_end()
@@ -50,8 +58,12 @@ class MaskLabGenerator:
         return len(self.dataset) // self.batch_size
 
     def __getitem__(self, index: int) -> Dict:
-        data = self.dataset[self.batch_size * index:
-                            self.batch_size * (index + 1)]
+        """Batch ``index``, or this rank's rows of it (``shard``)."""
+        start, rows = self.batch_size * index, self.batch_size
+        if self.shard is not None:
+            rows //= self.shard[1]
+            start += self.shard[0] * rows
+        data = self.dataset[start:start + rows]
         scale = self.scale_buckets[
             self.rng.randint(len(self.scale_buckets))]
         return self.rescale_batch(data, scale)
@@ -130,12 +142,14 @@ class MultiprocessLoader:
     Workers rebuild the dataset from its config dict — the reference's
     multiprocessing-safety trick (generator/masklab.py:19-26) — and produce
     batches by index; the parent interleaves requests round-robin.
+    ``shard``: as ``MaskLabGenerator``'s, each worker builds the rank's rows.
     """
 
     def __init__(self, dataset_config: Dict, num_workers: int = 4,
                  batch_size: int = 8, scale_ratio=(0.4, 0.6),
                  scale_buckets=(0.4, 0.45, 0.5, 0.55, 0.6),
-                 prefetch: int = 4, shuffle: bool = True, seed: int = 0):
+                 prefetch: int = 4, shuffle: bool = True, seed: int = 0,
+                 shard: Optional[Tuple[int, int]] = None):
         import multiprocessing as mp
         # spawn, not fork: the parent holds CUDA and thread pools, which a
         # forked child would inherit mid-flight; spawned workers rebuild the
@@ -144,7 +158,7 @@ class MultiprocessLoader:
         self.generator_args = dict(
             dataset=dataset_config, batch_size=batch_size,
             scale_ratio=scale_ratio, scale_buckets=scale_buckets,
-            shuffle=False)
+            shuffle=False, shard=shard)
         probe = MaskLabGenerator(**self.generator_args)
         self.num_batches = len(probe)
         self.num_workers = max(1, num_workers)

@@ -12,6 +12,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .nn.sync import all_reduce_sum
+
 EPS = 1e-7
 
 
@@ -69,18 +71,26 @@ class BoxLossState(NamedTuple):
 
 
 def box_loss(loc_true, loc_pred, mask, state: BoxLossState, weight=1.0,
-             momentum=0.9, beta=0.11,
-             use_adjust=True) -> Tuple[torch.Tensor, BoxLossState]:
+             momentum=0.9, beta=0.11, use_adjust=True,
+             sync=None) -> Tuple[torch.Tensor, BoxLossState]:
     """Self-adjusting smooth-L1 -> ([B], next state). As in the reference,
     this step's *updated* moving mean / var set the clipped beta, and the
     gradient flows through them into ``loc_pred``; the caller detaches the
-    returned state before the next step."""
+    returned state before the next step. With ``sync`` (a data-parallel
+    group's ``nn.sync.Ranks``; every rank holds as many rows) the mean and
+    the variance are those of the global batch."""
     neg, pos, ignore = split_neg_pos_mask(mask)
     num_pos = pos.sum((1, 2))
     if use_adjust:
         offsets = torch.abs(loc_true - loc_pred) * pos
-        mean = offsets.mean((0, 1))
-        var = ((offsets - mean) ** 2).mean((0, 1))
+        if sync is None:
+            mean = offsets.mean((0, 1))
+            var = ((offsets - mean) ** 2).mean((0, 1))
+        else:
+            count = offsets.shape[0] * offsets.shape[1] * sync.world
+            mean = all_reduce_sum(offsets.sum((0, 1)), sync.group) / count
+            var = all_reduce_sum(((offsets - mean) ** 2).sum((0, 1)),
+                                 sync.group) / count
         state = BoxLossState(state.moving_mean * momentum
                              + mean * (1 - momentum),
                              state.moving_var * momentum

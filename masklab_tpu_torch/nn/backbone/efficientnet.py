@@ -73,13 +73,18 @@ class _BN(nn.Module):
 
 
 def drop_connect(x: torch.Tensor, rate: float,
-                 generator: torch.Generator) -> torch.Tensor:
+                 generator: torch.Generator, sync=None) -> torch.Tensor:
     """Keep each sample's ``x`` with probability 1 - rate, scaled by 1 /
     (1 - rate); zero it otherwise. The draw is one uniform per sample from
-    ``generator`` on its own device, compared with the keep probability."""
+    ``generator`` on its own device, compared with the keep probability.
+    With ``sync`` (a data-parallel group's ``nn.sync.Ranks``), every rank
+    draws for the global batch from the same generator and keeps its own
+    rows."""
     keep = 1.0 - rate
-    u = torch.rand(x.shape[0], generator=generator,
-                   device=generator.device)
+    n = x.shape[0]
+    world, rank = (1, 0) if sync is None else (sync.world, sync.rank)
+    u = torch.rand(n * world, generator=generator,
+                   device=generator.device)[rank * n:(rank + 1) * n]
     mask = (u < keep).to(x.device)[:, None, None, None]
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
@@ -98,6 +103,7 @@ class _MBConv(nn.Module):
         self.expand, self.stride, self.kernel = expand, stride, kernel
         self.residual = stride == 1 and in_ch == out_ch
         self.drop_rate = drop_rate
+        self.sync = None                # nn.sync.synchronized sets it
         se_ch = max(1, int(in_ch * se_ratio))
         convs = []
         if expand != 1:
@@ -132,7 +138,8 @@ class _MBConv(nn.Module):
         if self.residual:
             if (self.drop_rate > 0.0 and self.training
                     and generator is not None):
-                x = drop_connect(x, self.drop_rate, generator)
+                x = drop_connect(x, self.drop_rate, generator,
+                                 self.sync)
             x = x + inputs
         return x, tap
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda import BandGroupNormFn
+from .sync import all_reduce_sum
 
 
 def _cast(t, dtype):
@@ -168,7 +169,11 @@ class BatchNorm(nn.Module):
     ``use_scale=False`` has no scale (``weight`` is None). While
     ``update_stats`` is False a train-mode call leaves the running
     statistics alone: the recomputation of a checkpointed forward
-    (``frozen_batch_stats``) must not apply the momentum update twice."""
+    (``frozen_batch_stats``) must not apply the momentum update twice.
+    While ``sync`` holds a data-parallel group (``nn.sync.synchronized``),
+    train mode takes the statistics of the global batch: the float32 sums
+    of x and x^2 over the rank's (N, H, W), summed over the ranks with
+    their gradients (every rank holds as many rows)."""
 
     def __init__(self, channels: int, eps: float = 1e-3,
                  use_scale: bool = True, momentum: float = 0.99):
@@ -176,6 +181,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.momentum = momentum
         self.update_stats = True
+        self.sync = None
         self.weight = (nn.Parameter(torch.ones(channels)) if use_scale
                        else None)
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -186,9 +192,16 @@ class BatchNorm(nn.Module):
         shape = (1, -1, 1, 1)
         f = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            mean = f.mean((0, 2, 3))
-            var = torch.clamp(f.square().mean((0, 2, 3)) - mean.square(),
-                              min=0.0)
+            if self.sync is None:
+                mean = f.mean((0, 2, 3))
+                mean_sq = f.square().mean((0, 2, 3))
+            else:
+                c = f.shape[1]
+                sums = all_reduce_sum(torch.cat(
+                    [f.sum((0, 2, 3)), f.square().sum((0, 2, 3))]),
+                    self.sync.group) / (f.numel() // c * self.sync.world)
+                mean, mean_sq = sums[:c], sums[c:]
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
             if self.update_stats:
                 with torch.no_grad():
                     m = self.momentum

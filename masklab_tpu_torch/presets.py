@@ -3,8 +3,8 @@
 ``road_project_config`` is the configuration the reference's road project
 trains and deploys: the seresnet34 backbone with C3..P6 outputs,
 squeeze-excite heads, road-object anchor ratios, min_area 200, and 2-way
-data parallelism. ``train.gpu_count`` and ``compute.mesh_data`` keep their
-values; one card serves with them unused.
+data parallelism: the trainer runs one rank on each of two cards where two
+are present, and on one card trains alone (``train.trainer``).
 """
 from __future__ import annotations
 

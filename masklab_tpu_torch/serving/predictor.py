@@ -17,12 +17,20 @@ and the instance union are reductions of the full-frame paste
 cross to the host. JPEG decode and encode run on the host through cv2,
 imported where they are used.
 
-The JAX predictor's ``mesh`` (data-parallel serving over several chips)
-is not ported (ROADMAP.md, Queue 1); its per-shape jit cache
-(``max_pipelines``) has no counterpart in eager PyTorch.
+With a ``mesh`` (``parallel.make_mesh``) the predictor keeps one replica
+of the model on each device of its ``data`` axis, pads a batch to a
+multiple of the axis with zero frames, runs each shard on its replica in a
+host thread of its own (each on a CUDA stream of its own, so the shards
+overlap on a shared card) and drops the pad rows on the device before the
+download. Every image runs the same pipeline alone, so the answers are
+those of the unsharded predictor fed the same shards. The JAX predictor's
+per-shape jit cache (``max_pipelines``) has no counterpart in eager
+PyTorch.
 """
 from __future__ import annotations
 
+import contextlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -49,31 +57,56 @@ class MaskLabPredictor:
     CPU) with the model moved there in inference mode, its conv and dense
     weights cast to the compute dtype once (``hold_compute_dtype``: the
     model then serves and no longer trains). ``visualization``
-    makes 'visualize' the default mode, else 'raw'. ``mesh`` (serving over
-    several cards) is not ported and raises."""
+    makes 'visualize' the default mode, else 'raw'. ``mesh`` (a
+    ``parallel.Mesh``) serves over its data axis: ``self.model`` is then
+    the tuple of replicas, one a device, and ``device`` is ignored."""
 
     def __init__(self, model, config: Optional[ModelConfiguration] = None,
                  visualization: bool = False, mesh=None, device=None):
-        """``self.model`` is read once a request, so a model swapped in by
-        a ``CheckpointWatcher`` serves the next request whole."""
-        if mesh is not None:
-            raise NotImplementedError(
-                'multi-card serving (mesh=) is not ported to PyTorch yet '
-                '(ROADMAP.md, Queue 1)')
-        self.device = resolve_device(device)
-        self.model = hold_compute_dtype(model.to(self.device).eval())
+        """``self.model`` is read once a request, so a model (or tuple of
+        replicas) swapped in by a ``CheckpointWatcher`` serves the next
+        request whole."""
+        self.mesh = mesh
         self.config = config or model.config
         self.visualization = visualization
+        if mesh is None:
+            self.device = resolve_device(device)
+            self.model = hold_compute_dtype(model.to(self.device).eval())
+            return
+        self.device = mesh.devices[0]
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        self.model = self._replicas(state)
+        self._pool = ThreadPoolExecutor(mesh.size,
+                                        thread_name_prefix='mesh-shard')
+        self._streams = [torch.cuda.Stream(d) if d.type == 'cuda' else None
+                         for d in mesh.devices]
+
+    def _replicas(self, state: Dict[str, torch.Tensor]) -> tuple:
+        """One model of this configuration on each mesh device, holding
+        ``state`` (a state dict), in inference mode, weights cast once."""
+        from ..models.masklab import MaskLab
+        out = []
+        for d in self.mesh.devices:
+            replica = MaskLab(self.config)
+            replica.load_state_dict(state)
+            out.append(hold_compute_dtype(replica.to(d).eval()))
+            if d.type == 'cuda':
+                # the shards' streams read the weights this one wrote
+                torch.cuda.synchronize(d)
+        return tuple(out)
 
     def place_variables(self, variables) -> torch.nn.Module:
         """A new model of this predictor's configuration holding
         ``variables`` (``train.checkpoints.restore_variables``' form), on
         its device, in inference mode, its weights cast once: ready to be
-        swapped in as ``self.model`` (``CheckpointWatcher``). The serving
-        model is left alone, so both are on the device until the swap."""
+        swapped in as ``self.model`` (``CheckpointWatcher``); with a mesh,
+        the tuple of every replica. The serving model is left alone, so both
+        are on the device until the swap."""
         from ..models.masklab import MaskLab
         from ..train.checkpoints import load_variables
         model = load_variables(MaskLab(self.config), variables)
+        if self.mesh is not None:
+            return self._replicas(model.state_dict())
         return hold_compute_dtype(model.to(self.device).eval())
 
     def _downsample(self, images: torch.Tensor):
@@ -146,17 +179,44 @@ class MaskLabPredictor:
             mode = 'visualize' if self.visualization else 'raw'
         if images.ndim == 3:
             images = images[None]
+        model = self.model
+        if self.mesh is None:
+            return self._run(model, self.device, images, len(images), mode)
+        # each shard's rows; the last one's pad rows are zero frames made
+        # on its device, and dropped there before the download
+        n = self.mesh.size
+        rows = -(-len(images) // n)
+        futures = [self._pool.submit(
+            self._run_on_stream, model[i], self.mesh.devices[i],
+            self._streams[i], images[i * rows:(i + 1) * rows], rows, mode)
+            for i in range(n) if i * rows < len(images)]
+        shards = [f.result() for f in futures]
+        return {k: np.concatenate([s[k] for s in shards])
+                for k in shards[0]}
+
+    def _run_on_stream(self, model, device, stream, images, rows, mode):
+        with (torch.cuda.stream(stream) if stream is not None
+              else contextlib.nullcontext()):
+            return self._run(model, device, images, rows, mode)
+
+    def _run(self, model, device, images: np.ndarray, rows: int,
+             mode: str) -> Dict[str, np.ndarray]:
+        """The pipeline on ``model`` (on ``device``) for ``images``, padded
+        with zero frames to ``rows``, the pad rows dropped on the device."""
+        keep = len(images)
         with torch.inference_mode():
             with record_function('stage:upload'):
-                x = torch.from_numpy(np.ascontiguousarray(images)).to(
-                    self.device)
+                x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
+                if rows > keep:
+                    x = torch.cat([x, x.new_zeros((rows - keep,)
+                                                  + x.shape[1:])])
             with record_function('stage:downsample'):
                 down, in_hw, ds_hw = self._downsample(x)
-            out = self.model(down)
+            out = model(down)
             with record_function('stage:postprocess'):
                 out = self._postprocess(out, x, down, in_hw, ds_hw, mode)
             with record_function('stage:download'):
-                return {k: v.cpu().numpy() for k, v in out.items()}
+                return {k: v[:keep].cpu().numpy() for k, v in out.items()}
 
     def predict_bytes(self, content: bytes,
                       mode: Optional[str] = None) -> Dict[str, np.ndarray]:

@@ -7,11 +7,23 @@ the box loss's moving statistics, and the metrics when asked for. The
 reference's step is a pure jitted function; this one updates the state in
 place and returns it. Its four phases are ``record_function`` spans
 (``stage:forward``, ``stage:losses``, ``stage:backward``,
-``stage:optimizer``) for the profiler.
+``stage:optimizer``; a data-parallel step's ``stage:all_reduce`` before the
+last) for the profiler.
+
+Given a data-parallel group (``ranks``, ``nn.sync.Ranks``), each rank runs
+the step on its rows of the global batch (``parallel.shard_batch``) and the
+step is the one-process step on the global batch: train-mode BatchNorm, the
+box loss's moving statistics and the drop-connect draws take the global
+batch (``nn.sync``); the total is a mean of per-image terms, so each rank
+backpropagates its own rows' total and the global batch's gradient is the
+mean of the ranks' gradients once the statistics' gradients have crossed
+the ranks; the reported loss and metrics are their means over the ranks.
+Every rank then applies the same update.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+import contextlib
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +35,7 @@ from ..models.detection import batched_assign_boxes
 from ..models.instance import assign_masks
 from ..models.masklab import MaskLab
 from ..models.semantic import assign_seg
+from ..nn.sync import Ranks, all_reduce_, synchronized
 from .state import TrainState
 
 
@@ -34,9 +47,11 @@ def as_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def losses_of(model: MaskLab, out: Dict, batch: Dict, box_state: BoxLossState,
-              with_metrics: bool = True) -> Tuple:
+              with_metrics: bool = True, ranks: Optional[Ranks] = None
+              ) -> Tuple:
     """The losses (and metrics) of ``trainer_outputs``' ``out`` ->
-    (total, next box state, metrics)."""
+    (total, next box state, metrics), of this rank's rows where ``ranks``
+    is given (the box loss's statistics of the global batch)."""
     cfg = model.config
     num_det = len(cfg.dataset.instance_labels)
     lc = cfg.loss
@@ -48,7 +63,8 @@ def losses_of(model: MaskLab, out: Dict, batch: Dict, box_state: BoxLossState,
     box_l, new_box_state = box_loss(
         loc_true, out['loc_pred'], assign_mask, box_state,
         weight=lc.box_loss_weight, momentum=lc.box_loss_momentum,
-        beta=lc.box_loss_beta, use_adjust=lc.box_loss_use_adjust)
+        beta=lc.box_loss_beta, use_adjust=lc.box_loss_use_adjust,
+        sync=ranks)
     mask_targets = assign_masks(out['roi_boxes'], batch['gt_boxes'],
                                 batch['gt_masks'],
                                 out['roi_masks'].shape[2:4], num_det)
@@ -78,16 +94,17 @@ def losses_of(model: MaskLab, out: Dict, batch: Dict, box_state: BoxLossState,
 
 
 def compute_losses(model: MaskLab, batch: Dict, box_state: BoxLossState,
-                   train: bool = True, with_metrics: bool = True) -> Tuple:
+                   train: bool = True, with_metrics: bool = True,
+                   ranks: Optional[Ranks] = None) -> Tuple:
     """The trainer forward and its losses -> (total, next box state,
     metrics). ``train`` sets the model's mode: batch statistics (updated in
     place) or the running ones. ``batch`` holds tensors keyed like the
     reference generator's feed: images, gt_seg, gt_seg_exist, gt_boxes,
-    gt_boxes_exist, gt_masks."""
+    gt_boxes_exist, gt_masks. ``ranks``: as ``losses_of``."""
     model.train(train)
     out = model.trainer_outputs(batch['images'], batch['gt_boxes'],
                                 with_metrics=with_metrics)
-    return losses_of(model, out, batch, box_state, with_metrics)
+    return losses_of(model, out, batch, box_state, with_metrics, ranks)
 
 
 def gradients(total: torch.Tensor, params: Dict[str, torch.Tensor]
@@ -100,15 +117,37 @@ def gradients(total: torch.Tensor, params: Dict[str, torch.Tensor]
             for (k, p), g in zip(params.items(), grads)}
 
 
+def mean_over_ranks(tensors: Dict[str, torch.Tensor], ranks: Ranks
+                    ) -> Dict[str, torch.Tensor]:
+    """{name: the mean over the ranks}: one sum over the ranks of the
+    tensors of each dtype, flattened together, the dtypes in their first
+    appearance's order (the same on every rank)."""
+    out = {}
+    for dtype in dict.fromkeys(t.dtype for t in tensors.values()):
+        names = [k for k, t in tensors.items() if t.dtype == dtype]
+        flat = all_reduce_(torch.cat([tensors[k].reshape(-1)
+                                      for k in names]), ranks.group)
+        flat /= ranks.world
+        for k, part in zip(names, flat.split(
+                [tensors[k].numel() for k in names])):
+            out[k] = part.view_as(tensors[k])
+    return {k: out[k] for k in tensors}
+
+
 def make_train_step(model: MaskLab, with_metrics: bool = True,
-                    seed: int = 42) -> Callable:
+                    seed: int = 42, ranks: Optional[Ranks] = None
+                    ) -> Callable:
     """The train step: (state, batch) -> (state, metrics). ``state`` is a
     ``TrainState`` of ``model``, updated in place; ``batch`` holds tensors
-    on the model's device (``as_batch``). ``seed`` is the run's base seed
-    (``train.seed``): each step's drop-connect (efficientnet) draws from a
-    CPU generator seeded from it and the step, as the reference folds
-    ``PRNGKey(seed)`` with the step (its bits differ from the reference's
-    draws; their distribution is the same)."""
+    on the model's device (``as_batch``): this rank's rows of the global
+    batch where ``ranks`` names a data-parallel group. ``seed`` is the
+    run's base seed (``train.seed``): each step's drop-connect
+    (efficientnet) draws from a CPU generator seeded from it and the step,
+    as the reference folds ``PRNGKey(seed)`` with the step (its bits differ
+    from the reference's draws; their distribution is the same)."""
+    def sync_block():
+        return (synchronized(model, ranks) if ranks is not None
+                else contextlib.nullcontext())
 
     def train_step(state: TrainState, batch: Dict):
         if state.model is not model:
@@ -117,15 +156,21 @@ def make_train_step(model: MaskLab, with_metrics: bool = True,
         # the CPU generator keeps the seed's low 32 bits
         generator = torch.Generator().manual_seed(
             (seed * 1_000_003 + state.step) % (1 << 32))
-        with record_function('stage:forward'):
-            out = model.trainer_outputs(batch['images'], batch['gt_boxes'],
-                                        with_metrics=with_metrics,
-                                        generator=generator)
-        with record_function('stage:losses'):
-            total, new_box_state, metrics = losses_of(
-                model, out, batch, state.box_loss_state, with_metrics)
-        with record_function('stage:backward'):
-            grads = gradients(total, state.params)
+        with sync_block():
+            with record_function('stage:forward'):
+                out = model.trainer_outputs(
+                    batch['images'], batch['gt_boxes'],
+                    with_metrics=with_metrics, generator=generator)
+            with record_function('stage:losses'):
+                total, new_box_state, metrics = losses_of(
+                    model, out, batch, state.box_loss_state, with_metrics,
+                    ranks)
+            with record_function('stage:backward'):
+                grads = gradients(total, state.params)
+        if ranks is not None:
+            with record_function('stage:all_reduce'):
+                grads = mean_over_ranks(grads, ranks)
+                metrics = mean_over_ranks(metrics, ranks)
         with record_function('stage:optimizer'):
             state.apply_gradients(grads)
         state.box_loss_state = new_box_state
@@ -134,15 +179,21 @@ def make_train_step(model: MaskLab, with_metrics: bool = True,
     return train_step
 
 
-def make_eval_step(model: MaskLab, with_metrics: bool = True) -> Callable:
+def make_eval_step(model: MaskLab, with_metrics: bool = True,
+                   ranks: Optional[Ranks] = None) -> Callable:
     """(state, batch) -> metrics, with the running BatchNorm statistics and
-    no gradient."""
+    no gradient; with ``ranks``, of this rank's rows (the box loss's
+    statistics of the global batch), the metrics averaged over the
+    ranks."""
 
     def eval_step(state: TrainState, batch: Dict):
         with torch.no_grad():
             _, _, metrics = compute_losses(model, batch,
                                            state.box_loss_state, train=False,
-                                           with_metrics=with_metrics)
+                                           with_metrics=with_metrics,
+                                           ranks=ranks)
+            if ranks is not None:
+                metrics = mean_over_ranks(metrics, ranks)
         return metrics
 
     return eval_step

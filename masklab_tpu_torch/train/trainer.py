@@ -13,10 +13,18 @@ The port's counterpart of ``masklab_tpu/train/trainer.py``:
   * per-epoch checkpoints named ``"{loss:.5f}-{epoch:02d}"``, then
     ``history.json`` and the MLflow artifacts.
 
-It runs on ``device`` (the CUDA card unless the caller names another). The
-reference clamps ``compute.mesh_data`` to its devices; the port clamps it to
-the cards present and raises where more than one would take part: data
-parallelism is not ported (ROADMAP.md, Queue 1 item 5).
+It runs on ``device`` (the CUDA card unless the caller names another).
+Data parallelism (the reference's mesh over ``compute.mesh_data`` devices,
+clamped to those present): with more than one card asked for and present,
+``train_masklab_model`` runs one rank a card, itself rank 0 and the others
+spawned, joined over NCCL on a free localhost port; inside a process group
+that is already initialised (``parallel.initialize``, the multi-host route)
+it trains over that group. Each rank builds only its rows of each global
+batch (the same shuffle and scale draws on every rank), runs the parallel
+step (``train.steps`` with ``nn.sync.Ranks``), validates over the group
+when the valid batch divides by its size (else each rank the whole valid
+batch), and only rank 0 writes checkpoints, metrics, history, TensorBoard,
+MLflow and the logs; the others wait at a barrier.
 
 A step's host work runs inside ``record_function`` spans beside the step's
 own (``stage:forward`` ... ``stage:optimizer``): ``stage:data_wait`` (the
@@ -28,10 +36,11 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from ..config import ModelConfiguration
@@ -40,6 +49,7 @@ from ..data.generator import (MaskLabGenerator, MultiprocessLoader,
                               PrefetchIterator, pad_boxes_to)
 from ..device import resolve_device
 from ..models.masklab import build_masklab
+from ..nn.sync import Ranks, ranks_of
 from ..utils.loggers import (CSVLogger, MLflowLogger, MultiLogger,
                              TensorBoardLogger)
 from .checkpoints import CheckpointManager
@@ -73,16 +83,9 @@ def construct_masklab_datasets(config: ModelConfiguration):
 def data_parallel_size(config: ModelConfiguration,
                        device: torch.device) -> int:
     """``compute.mesh_data`` clamped to the cards present (0 asks for all of
-    them), as the reference clamps it to its devices. More than one is not
-    ported and raises."""
+    them), as the reference clamps it to its devices; 1 on the CPU."""
     cards = torch.cuda.device_count() if device.type == 'cuda' else 1
-    n = max(1, min(config.compute.mesh_data or cards, cards))
-    if n > 1:
-        raise NotImplementedError(
-            f'data-parallel training over {n} cards (compute.mesh_data = '
-            f'{config.compute.mesh_data}) is not ported to PyTorch yet '
-            '(ROADMAP.md, Queue 1 item 5); set -compute.mesh_data 1')
-    return n
+    return max(1, min(config.compute.mesh_data or cards, cards))
 
 
 class MaskLabTrainer:
@@ -90,36 +93,52 @@ class MaskLabTrainer:
 
     def __init__(self, config: ModelConfiguration,
                  max_gt_boxes: int = 16, log_fn: Callable = print,
-                 device=None):
+                 device=None, ranks: Optional[Ranks] = None):
+        """``ranks``: the data-parallel group this trainer is a rank of;
+        only rank 0 writes (config.json, the loggers, the log lines)."""
         self.config = config
         self.device = resolve_device(device)
-        data_parallel_size(config, self.device)
+        self.ranks = ranks
+        self.writes = ranks is None or ranks.rank == 0
         self.model = build_masklab(config, device=self.device)
         self.max_gt_boxes = max_gt_boxes
-        self.log = log_fn
+        self.log = log_fn if self.writes else (lambda *_: None)
         self.state: Optional[TrainState] = None
-        self.ckpt = CheckpointManager(config.train.save_dir, config)
+        self.ckpt = CheckpointManager(config.train.save_dir,
+                                      config if self.writes else None)
         self.history: Dict[str, list] = {}
-        self.mlflow = MLflowLogger(
-            run_name=os.path.basename(config.train.save_dir.rstrip('/')))
-        self.metrics_logger = MultiLogger(
-            CSVLogger(os.path.join(config.train.save_dir, 'metrics.csv')),
-            TensorBoardLogger(os.path.join(config.train.save_dir, 'tb')),
-            self.mlflow)
-        self.mlflow.log_params({
-            f'{group}.{key}': value
-            for group, attrs in config.to_dict().items()
-            for key, value in attrs.items()})
+        self.mlflow = None
+        self.metrics_logger = MultiLogger()
+        if self.writes:
+            self.mlflow = MLflowLogger(
+                run_name=os.path.basename(config.train.save_dir.rstrip('/')))
+            self.metrics_logger = MultiLogger(
+                CSVLogger(os.path.join(config.train.save_dir, 'metrics.csv')),
+                TensorBoardLogger(os.path.join(config.train.save_dir, 'tb')),
+                self.mlflow)
+            self.mlflow.log_params({
+                f'{group}.{key}': value
+                for group, attrs in config.to_dict().items()
+                for key, value in attrs.items()})
         self._global_epoch = 0
+
+    def barrier(self) -> None:
+        """Every rank waits here for the others (rank 0's writes)."""
+        if self.ranks is not None:
+            dist.barrier(group=self.ranks.group)
 
     # ---- setup ----
 
     def init_state(self, sample_batch: Dict) -> None:
         """The train state of the seeded model (``build_masklab``); the
         sample batch, which the reference traces its init with, is not
-        needed. The optimizer is a placeholder, rebuilt per phase."""
+        needed. The optimizer is a placeholder, rebuilt per phase. Every
+        rank then holds rank 0's state."""
         self.state = TrainState(self.model, rectified_adam(1e-10),
                                 box_beta=self.config.loss.box_loss_beta)
+        if self.ranks is not None:
+            from ..parallel import replicate_state
+            replicate_state(self.state, self.ranks)
 
     def _phase_tx(self, base_lr, max_lr, step_size, freeze_depth):
         """-> (tx, schedule): one schedule object serves both the
@@ -151,8 +170,13 @@ class MaskLabTrainer:
         tx, schedule = self._phase_tx(base_lr, max_lr, step_size,
                                       freeze_depth)
         self._rebuild_state_for_phase(tx)
-        step_fn = make_train_step(self.model, seed=self.config.train.seed)
-        eval_fn = make_eval_step(self.model) if valid_generator else None
+        step_fn = make_train_step(self.model, seed=self.config.train.seed,
+                                  ranks=self.ranks)
+        # validation rides the group where the valid generator gives this
+        # rank's rows; otherwise every rank evaluates the whole valid batch
+        eval_fn = make_eval_step(self.model, ranks=self.ranks if getattr(
+            valid_generator, 'shard', None) else None) \
+            if valid_generator else None
         steps = steps_per_epoch if steps_per_epoch is not None \
             else max(1, step_size // 2)
         # worker-process batch building when configured; otherwise the
@@ -166,7 +190,8 @@ class MaskLabTrainer:
                 batch_size=generator.batch_size,
                 scale_ratio=generator.scale_ratio,
                 scale_buckets=tuple(generator.scale_buckets),
-                shuffle=generator.shuffle, seed=t.seed)
+                shuffle=generator.shuffle, seed=t.seed,
+                shard=generator.shard)
         source = loader if loader is not None else generator
         try:
             self._run_epochs(name, source, valid_generator, epochs,
@@ -238,8 +263,11 @@ class MaskLabTrainer:
         self.metrics_logger.log(self._global_epoch, epoch_metrics)
         self._global_epoch += 1
         with record_function('stage:checkpoint'):
-            self.ckpt.save_epoch(self.state, val_loss if val_loss is not None
-                                 else train_loss, epoch)
+            if self.writes:
+                self.ckpt.save_epoch(self.state, val_loss
+                                     if val_loss is not None else train_loss,
+                                     epoch)
+            self.barrier()
 
     def smoke_check(self, generator: MaskLabGenerator,
                     num_steps: int = 1) -> None:
@@ -251,7 +279,8 @@ class MaskLabTrainer:
         tx = chain(rectified_adam(1e-10), masked_updates(trainable_mask(
             self.model, self.config.backbone.backbone_type, 'C0')))
         self._rebuild_state_for_phase(tx)
-        step_fn = make_train_step(self.model, with_metrics=False)
+        step_fn = make_train_step(self.model, with_metrics=False,
+                                  ranks=self.ranks)
         for i in range(num_steps):
             batch = self._prepare(generator[i % max(1, len(generator))])
             self.state, metrics = step_fn(self.state, batch)
@@ -266,33 +295,103 @@ def train_masklab_model(config: ModelConfiguration,
                         steps_per_epoch: Optional[int] = None,
                         smoke_steps: int = 1,
                         device=None) -> MaskLabTrainer:
-    """The canonical train() entry, on ``device`` (the card by default)."""
+    """The canonical train() entry, on ``device`` (the card by default):
+    over the process group where one is initialised, over
+    ``data_parallel_size`` cards where that is more than one (this process
+    rank 0 on card 0), else in this process. Returns this process's
+    trainer."""
+    device = resolve_device(device)
+    kwargs = dict(max_gt_boxes=max_gt_boxes, steps_per_epoch=steps_per_epoch,
+                  smoke_steps=smoke_steps)
+    if dist.is_initialized():
+        return _train(config, device=device, ranks=ranks_of(None), **kwargs)
+    n = data_parallel_size(config, device)
+    if n == 1:
+        return _train(config, device=device, ranks=None, **kwargs)
+    return _train_on_devices(config, [f'cuda:{r}' for r in range(n)],
+                             kwargs)
+
+
+def _train_on_devices(config: ModelConfiguration, devices: List[str],
+                      kwargs: Dict) -> MaskLabTrainer:
+    """One rank a device: rank 0 here on ``devices[0]``, the others
+    spawned."""
+    import multiprocessing as mp
+    from ..parallel import free_port, initialize
+    port = free_port()
+    n = len(devices)
+    ctx = mp.get_context('spawn')
+    workers = [ctx.Process(target=_rank_main,
+                           args=(config, devices, r, port, kwargs))
+               for r in range(1, n)]
+    for w in workers:
+        w.start()
+    done = False
+    try:
+        device = initialize(f'localhost:{port}', n, 0, device=devices[0])
+        try:
+            trainer = _train(config, device=device, ranks=ranks_of(None),
+                             **kwargs)
+        finally:
+            dist.destroy_process_group()
+        done = True
+    finally:
+        for w in workers:
+            if not done:
+                w.terminate()
+            w.join()
+    failed = [r for r, w in enumerate(workers, 1) if w.exitcode != 0]
+    if failed:
+        raise RuntimeError(f'data-parallel training: ranks {failed} failed')
+    return trainer
+
+
+def _rank_main(config: ModelConfiguration, devices: List[str], r: int,
+               port: int, kwargs: Dict) -> None:
+    """A spawned rank of ``_train_on_devices``."""
+    from ..parallel import initialize
+    device = initialize(f'localhost:{port}', len(devices), r,
+                        device=devices[r])
+    try:
+        _train(config, device=device, ranks=ranks_of(None), **kwargs)
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(config: ModelConfiguration, max_gt_boxes: int,
+           steps_per_epoch: Optional[int], smoke_steps: int, device,
+           ranks: Optional[Ranks]) -> MaskLabTrainer:
+    """The run itself, in this process: one rank of ``ranks`` or alone."""
     t = config.train
     os.makedirs(t.save_dir, exist_ok=True)
+    shard = None if ranks is None else (ranks.rank, ranks.world)
 
     trainset, validset = construct_masklab_datasets(config)
     train_gen = MaskLabGenerator(
         trainset.get_config(), scale_ratio=t.scale_ratio,
         batch_size=t.batch_size,
-        scale_buckets=config.compute.scale_buckets, seed=t.seed)
+        scale_buckets=config.compute.scale_buckets, seed=t.seed, shard=shard)
     # valid batch = 4x train batch, clamped so small validation sets still
     # yield at least one full batch
+    valid_batch = min(t.batch_size * 4, t.max_batch_size,
+                      max(1, len(validset)))
     valid_gen = MaskLabGenerator(
         validset.get_config(), scale_ratio=t.scale_ratio,
-        batch_size=min(t.batch_size * 4, t.max_batch_size,
-                       max(1, len(validset))),
-        scale_buckets=config.compute.scale_buckets) \
+        batch_size=valid_batch,
+        scale_buckets=config.compute.scale_buckets,
+        shard=shard if shard and valid_batch % shard[1] == 0 else None) \
         if len(validset) else None
 
     trainer = MaskLabTrainer(config, max_gt_boxes=max_gt_boxes,
-                             device=device)
+                             device=device, ranks=ranks)
     trainer.init_state(train_gen[0])
     # the smoke check runs at the LARGEST scale bucket: the worst-case
     # memory must fit before real training
     max_scale = max(train_gen.scale_buckets)
     smoke_gen = MaskLabGenerator(
         trainset.get_config(), scale_ratio=(max_scale, max_scale),
-        batch_size=t.batch_size, scale_buckets=(max_scale,), shuffle=False)
+        batch_size=t.batch_size, scale_buckets=(max_scale,), shuffle=False,
+        shard=shard)
     trainer.smoke_check(smoke_gen, num_steps=smoke_steps)
 
     if t.train_head_tune:
@@ -309,14 +408,16 @@ def train_masklab_model(config: ModelConfiguration,
         trainer.run_phase('all', train_gen, valid_gen, t.train_all_epoch,
                           t.all_base_lr, t.all_max_lr, t.all_step_size,
                           'C0', steps_per_epoch)
-    with open(os.path.join(t.save_dir, 'history.json'), 'w') as f:
-        json.dump(trainer.history, f, indent=2)
-    for artifact in ('history.json', 'metrics.csv', 'config.json'):
-        path = os.path.join(t.save_dir, artifact)
-        if os.path.exists(path):
-            trainer.mlflow.log_artifact(path)
-    best = trainer.ckpt.best_checkpoint()
-    if best is not None:
-        trainer.mlflow.log_artifact_dir(best, os.path.basename(best))
+    if trainer.writes:
+        with open(os.path.join(t.save_dir, 'history.json'), 'w') as f:
+            json.dump(trainer.history, f, indent=2)
+        for artifact in ('history.json', 'metrics.csv', 'config.json'):
+            path = os.path.join(t.save_dir, artifact)
+            if os.path.exists(path):
+                trainer.mlflow.log_artifact(path)
+        best = trainer.ckpt.best_checkpoint()
+        if best is not None:
+            trainer.mlflow.log_artifact_dir(best, os.path.basename(best))
     trainer.metrics_logger.close()
+    trainer.barrier()
     return trainer

@@ -363,8 +363,9 @@ def test_build_predictor_precedence(tmp_path, capsys, monkeypatch):
     """serving_config.json wins over config.json and the command line;
     without it, config.json keeps the command line's postprocess; without
     a checkpoint directory, smoke mode: a warning and init_weights(seed=0).
-    --mesh-data above the cards present warns and serves on one; as many
-    cards as asked for (more than one) raise before any weight loads."""
+    --mesh-data above the cards present warns and serves on one; with as
+    many cards as asked for (more than one) the predictor serves over a
+    mesh of them, one replica of the checkpoint a card."""
     cfg = tiny(mt.ModelConfiguration())
     run = str(tmp_path / 'run')
     save_checkpoint(run, cfg, seed=1, loss=0.5)
@@ -392,8 +393,23 @@ def test_build_predictor_precedence(tmp_path, capsys, monkeypatch):
 
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: True)
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: 2)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
-        tcli._build_predictor(cfg, run, mesh_data=2, device='cuda')
+    from masklab_tpu_torch import parallel
+    from masklab_tpu_torch.train.checkpoints import load_variables
+    make_mesh, asked = parallel.make_mesh, []
+
+    def cpu_mesh(data=None, **_):
+        # the two "cards" as CPU devices: this host has none
+        asked.append(data)
+        return make_mesh(data, devices=['cpu'] * data)
+    monkeypatch.setattr(parallel, 'make_mesh', cpu_mesh)
+    meshed = tcli._build_predictor(cfg, run, mesh_data=2, device='cuda')
+    assert asked == [2] and meshed.mesh.size == 2
+    assert len(meshed.model) == 2
+    want = load_variables(mt.MaskLab(cfg), CheckpointManager(
+        run, None).restore_variables()).state_dict()
+    for replica in meshed.model:
+        for (k, v), w in zip(replica.state_dict().items(), want.values()):
+            assert torch.equal(v, w), k
 
 
 # ---- serve and process: arguments ----

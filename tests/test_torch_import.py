@@ -44,9 +44,12 @@ TRAINING_MODULES = ['data.dataset', 'data.generator', 'data.imglab',
 # the deployment slice's modules: the backbone zoo, hot-reload, the servers
 DEPLOY_MODULES = ['nn.backbone.efficientnet', 'nn.backbone.mobilenetv2',
                   'nn.backbone.vgg', 'serving.batching', 'serving.server']
+# the data-parallel slice's modules
+PARALLEL_MODULES = ['parallel.mesh', 'parallel.multihost']
 
 
-@pytest.mark.parametrize('module', TRAINING_MODULES + DEPLOY_MODULES)
+@pytest.mark.parametrize('module', TRAINING_MODULES + DEPLOY_MODULES
+                         + PARALLEL_MODULES)
 def test_training_module_imports_no_jax_reference_or_pandas(module):
     """Imported alone in a fresh interpreter: no jax, flax or masklab_tpu
     module is loaded, nor pandas by a data module."""
@@ -101,13 +104,20 @@ def test_predictor_raises_without_card(monkeypatch):
 
 
 def test_predictor_refuses_unported_modes():
-    """Every output mode is served; multi-card serving (``mesh=``) is not
-    ported and raises rather than serving on one card."""
+    """Every output mode is served, and serving over several devices
+    (``mesh=``) builds one replica of the model on each mesh device
+    (tests/test_torch_parallel.py holds its answers)."""
+    from masklab_tpu_torch.parallel import make_mesh
     cfg = mt.ModelConfiguration()
     cfg.backbone.backbone_type = 'mobilenet'
     model = mt.build_masklab(cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        mt.MaskLabPredictor(model, mesh=object(), device='cpu')
+    pred = mt.MaskLabPredictor(model, mesh=make_mesh(devices=['cpu', 'cpu']))
+    assert isinstance(pred.model, tuple) and len(pred.model) == 2
+    assert pred.model[0] is not pred.model[1]
+    for replica in pred.model:
+        for (k, v), w in zip(replica.state_dict().items(),
+                             model.state_dict().values()):
+            assert torch.equal(v, w), k
 
 
 @pytest.mark.parametrize('group', ['detection', 'instance', 'semantic'])

@@ -472,19 +472,18 @@ def test_trainer_and_cli_need_a_card_or_the_cpu(monkeypatch, data_dir,
                        '-backbone.backbone_type', 'mobilenet'])
 
 
-@pytest.mark.parametrize('cards,mesh_data,raises', [
-    (1, 2, False),      # the road preset's 2 on one card: clamped
-    (1, 0, False),
-    (2, 2, True),       # two cards asked for and present: not ported
-    (2, 0, True),
-    (2, 1, False)])
-def test_data_parallel_size(monkeypatch, cards, mesh_data, raises):
+@pytest.mark.parametrize('cards,mesh_data,want', [
+    (1, 2, 1),          # the road preset's 2 on one card: clamped
+    (1, 0, 1),
+    (2, 2, 2),          # two cards asked for and present: two ranks
+    (2, 0, 2),          # 0 asks for every card
+    (2, 1, 1)])
+def test_data_parallel_size(monkeypatch, cards, mesh_data, want):
+    """``compute.mesh_data`` clamped to the cards present, as the reference
+    clamps it to its devices (the trainer then runs one rank a card); one
+    on the CPU."""
     monkeypatch.setattr(torch.cuda, 'device_count', lambda: cards)
     cfg = mt.road_project_config()
     cfg.compute.mesh_data = mesh_data
-    if raises:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            ttrainer.data_parallel_size(cfg, torch.device('cuda'))
-    else:
-        assert ttrainer.data_parallel_size(cfg, torch.device('cuda')) == 1
+    assert ttrainer.data_parallel_size(cfg, torch.device('cuda')) == want
     assert ttrainer.data_parallel_size(cfg, torch.device('cpu')) == 1
