@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port (masklab_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--kernels-only | --serve-only | --trainer-only
-                           | --deploy-only | --parallel-only
-                           | --multi-card | --reference-draws N]
+                           | --deploy-only | --parallel-only | --fused-only
+                           | --acceptance-only | --multi-card
+                           | --reference-draws N]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -102,7 +103,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the whole batch, img/s and p50 on 2 replicas and 1, a hot swap
      rebuilding both replicas.
 
-Phases 8-10 and 11 run after phase 6 and before phase 7.
+ 12. fused: the fused mask head (``compute.fused_mask_head``,
+     ``run_fused``): the narrow float32 headline model with it, card
+     against CPU as phase 4; the full-width headline predictor with it
+     (b16, 512 px, bf16, forced dense) in the three modes as phase 5, K2
+     once and K3 twice a forward and K1 never (its GroupNorm is textbook
+     per box), its mask branch's host and busy ms beside the per-level
+     headline's; FUSED_STEPS counted steps of the bench train config with
+     it (every loss finite), ms a step beside the per-level config's;
+ 13. acceptance: the learning gates (``run_acceptance``):
+     ``examples/torch/06_overfit_acceptance.py`` (8 synthetic images, 12 x
+     50 steps of the small road model, mask mIoU > 0.8 and semantic mIoU >
+     0.6 at 128x160) and ``07_generalization_gate.py`` (30 images, the
+     seed-777 split, both > 0.5 on the held-out images), each from a fresh
+     synthetic set, their launches counted; a gate below its floor fails
+     the run. K1 and K1's backward are then held against their plain
+     versions at every distinct map the gates gave them (the small road
+     model's float32 C=32, G=16 heads, cg 2), relu off and on.
+
+Phases 8-11 run after phase 12, phase 7 after them, and phase 13 last.
 
 Then it prints the ``kernels`` JSON line (each kernel's ``launches`` from
 the headline raw path, K1's backward's from the train path,
@@ -119,7 +138,9 @@ two deployments' serve paths (phase 5 without the headline's extras), for
 comparing the serve paths of two trees the same way. ``--trainer-only``
 runs phases 1, 2, K2's check (without its edge cases) and phase 7.
 ``--deploy-only`` runs phases 1, 2 and 8-10, ``--parallel-only`` phases 1,
-2 and 11. ``--multi-card`` (two cards at least; not part of the default
+2 and 11, ``--fused-only`` phases 1, 2 and 12 (serving the per-level
+headline and 5 per-level train steps beside it), ``--acceptance-only``
+phases 1, 2 and 13. ``--multi-card`` (two cards at least; not part of the default
 run, which needs one) runs phases 1, 2 and data parallelism over every
 card: the full-width step over one NCCL rank a card against one rank, the
 CLI trainer with ``compute.mesh_data`` = the cards, the serving mesh over
@@ -606,9 +627,10 @@ def check_k1_backward(kc, rng, edges: bool):
                 **timing)
 
 
-def k1_backward_shapes(step, state, batch) -> list:
-    """The maps K1's backward gets in one train step, as [n, q, c, groups,
-    dtype, fuse_relu] (the step runs once more with the wrapper wrapped)."""
+@contextlib.contextmanager
+def recorded_k1_backward_maps():
+    """Within the block, every call of K1's backward wrapper records its map:
+    yields the list of [n, q, c, groups, dtype, fuse_relu], one a call."""
     from masklab_tpu_torch.ops.cuda import groupnorm
     seen, wrapper = [], groupnorm.band_groupnorm_backward
 
@@ -617,11 +639,46 @@ def k1_backward_shapes(step, state, batch) -> list:
         return wrapper(x, dy, scale, groups, eps, fuse_relu)
     groupnorm.band_groupnorm_backward = record
     try:
-        step(state, batch)
-        torch.cuda.synchronize()
+        yield seen
     finally:
         groupnorm.band_groupnorm_backward = wrapper
+
+
+def k1_backward_shapes(step, state, batch) -> list:
+    """The maps K1's backward gets in one train step, as [n, q, c, groups,
+    dtype, fuse_relu] (the step runs once more with the wrapper wrapped)."""
+    with recorded_k1_backward_maps() as seen:
+        step(state, batch)
+        torch.cuda.synchronize()
     return seen
+
+
+def k1_backward_at_maps(kc, rng, maps) -> list:
+    """K1's backward against its plain version at each distinct (n, q, c,
+    groups, dtype) of the maps ``recorded_k1_backward_maps`` saw, relu off
+    and on, within K1B_*; raises after trying them all if any is outside.
+    An empty map (n = 0) has nothing to hold."""
+    cases, bad = [], []
+    for n, q, c, g, dtype in sorted({tuple(m[:5]) for m in maps if m[0]}):
+        dt = getattr(torch, dtype)
+        x = torch.from_numpy(rng.randn(n, q, c).astype(np.float32) * 2
+                             + 1).to(DEVICE).to(dt)
+        dy = torch.from_numpy(rng.randn(n, q, c).astype(np.float32)).to(
+            DEVICE).to(dt)
+        scale = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(
+            np.float32)).to(DEVICE)
+        for relu in (False, True):
+            dx_err, p_err = k1_backward_errors(kc, x, dy, scale, g, relu)
+            case = dict(shape=[n, q, c], groups=g, dtype=dtype, relu=relu,
+                        dx_err=dx_err, param_err=p_err)
+            cases.append(case)
+            limit = K1B_F32_ATOL if dt == torch.float32 else K1B_BF16_ULPS
+            if not (dx_err <= limit and p_err <= K1B_PARAM_RTOL):
+                bad.append(case)
+    if bad:
+        raise AssertionError(f'band_groupnorm_backward outside tolerance: '
+                             f'{bad}')
+    return cases
 
 
 def check_train_maps(shapes):
@@ -2010,12 +2067,15 @@ def check_outputs(out: dict, mode: str, batch: int, max_out: int) -> None:
         raise AssertionError(f'{mode}: non-finite analytics rows')
 
 
-def serve_path(kc, model, predictor, batches, mode: str, max_out: int):
+def serve_path(kc, model, predictor, batches, mode: str, max_out: int,
+               per_forward=None):
     """One path of the deployment: REQUESTS counted requests in ``mode``
     (after one warm-up), every kernel launch and every fallback of the
     candidate pool's certificate counted from 0 just before them; the
-    model's outputs of each must be finite, each kernel launched on every
-    forward. Then one more request, traced, split by stage."""
+    model's outputs of each must be finite, each kernel launched
+    ``per_forward`` times a forward at least (a kernel at 0 must not launch
+    at all), and the peak memory of the counted requests. Then one more
+    request, traced, split by stage."""
     from masklab_tpu_torch.ops import nms
     predictor.predict(batches[0], mode)               # warm-up, not counted
     raw_keys = ('cls_pred', 'loc_pred', 'seg_pred', 'roi_boxes', 'roi_masks')
@@ -2023,6 +2083,7 @@ def serve_path(kc, model, predictor, batches, mode: str, max_out: int):
     hook = model.register_forward_hook(lambda module, args, out: finite.append(
         torch.stack([torch.isfinite(out[k]).all() for k in raw_keys])))
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     kc.reset_launch_counts()
     nms.pool_fallbacks = 0
     latencies, outputs = [], []
@@ -2042,15 +2103,18 @@ def serve_path(kc, model, predictor, batches, mode: str, max_out: int):
                 raise AssertionError(f'{mode}: request {i}: non-finite {k}')
     for out in outputs:
         check_outputs(out, mode, len(batches[0]), max_out)
-    for name, per_forward in PER_FORWARD.items():
-        if counts[name] < per_forward * REQUESTS:
+    for name, per in (PER_FORWARD if per_forward is None
+                      else per_forward).items():
+        if counts[name] < per * REQUESTS or (per == 0 and counts[name]):
             raise AssertionError(f'{mode}: {name} launched {counts[name]} '
-                                 f'times in {REQUESTS} forwards')
+                                 f'times in {REQUESTS} forwards, {per} a '
+                                 'forward expected')
     total = sum(latencies)
     stats = dict(mode=mode, batch=len(batches[0]),
                  img_per_s=len(batches[0]) * REQUESTS / total,
                  p50_batch_ms=statistics.median(latencies) * 1e3,
                  latencies_ms=[t * 1e3 for t in latencies],
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(),
                  launches=counts, pool_fallbacks=fallbacks)
     stats.update(stage_profile(lambda: predictor.predict(batches[0], mode)))
     return stats
@@ -2217,7 +2281,8 @@ def check_servers(predictor, cfg, rng):
     return out
 
 
-def serve_deployment(mt, kc, rng, name, cfg, batch, extra=None):
+def serve_deployment(mt, kc, rng, name, cfg, batch, extra=None,
+                     per_forward=None):
     """The deployment's three modes (raw, visualize, summarize), each with
     its own launch counts; ``extra(model, predictor)`` runs further phases
     on the same predictor."""
@@ -2227,11 +2292,13 @@ def serve_deployment(mt, kc, rng, name, cfg, batch, extra=None):
                for _ in range(REQUESTS)]
     paths = {}
     for mode in MODES:
-        stats = serve_path(kc, model, predictor, batches, mode, max_out)
+        stats = serve_path(kc, model, predictor, batches, mode, max_out,
+                           per_forward)
         paths[f'{name} {mode}'] = stats
         print(f'serve {name} {mode}: b{batch} {stats["img_per_s"]:.2f} '
               f'img/s, p50 batch {stats["p50_batch_ms"]:.2f} ms, latencies '
-              f'{[round(t, 2) for t in stats["latencies_ms"]]} ms, launches '
+              f'{[round(t, 2) for t in stats["latencies_ms"]]} ms, peak '
+              f'{stats["peak_memory_bytes"] / 2**30:.2f} GiB, launches '
               f'{json.dumps(stats["launches"])}, candidate-pool fallbacks '
               f'{stats["pool_fallbacks"]} in {REQUESTS} requests',
               flush=True)
@@ -3559,6 +3626,201 @@ def run_multi_card(mt) -> dict:
     return out
 
 
+# ---- phase 12: the fused mask head ----
+
+# kernel launches a forward of the fused headline at 512 px, forced dense:
+# the fused head's textbook per-box GroupNorm launches no K1; K2 once for
+# the candidate pool, K3 in both NMS stages
+FUSED_PER_FORWARD = {'band_groupnorm': 0, 'segment_topk': 1, 'nms_keep': 2}
+FUSED_WARMUP, FUSED_STEPS = 2, 5
+
+
+def fused(cfg):
+    """``cfg`` with the fused mask head (the headline's and the bench train
+    config's instance heads are plain, so MaskLab builds FusedMaskSubNet)."""
+    cfg.compute.fused_mask_head = True
+    return cfg
+
+
+def short_train(mt, kc, cfg) -> dict:
+    """bench.py's train step (``train_path``'s batch, optimizer and seed) on
+    ``cfg``: FUSED_WARMUP steps, then FUSED_STEPS counted ones, each timed on
+    the host clock between CUDA synchronizations with its launches counted
+    from 0 just before it; every loss finite and K3 launched in every
+    step."""
+    from masklab_tpu_torch import train
+    from masklab_tpu_torch.data import make_random_batch
+    model = mt.build_masklab(cfg, device=DEVICE, seed=0)
+    state = train.TrainState(model, train.rectified_adam(
+        train.cyclic_lr(1e-4, 1e-3, 700)))
+    step = train.make_train_step(model, with_metrics=False)
+    batch = train.as_batch(make_random_batch(
+        TRAIN_BATCH, (TRAIN_SIZE, TRAIN_SIZE), 8), DEVICE)
+    for _ in range(FUSED_WARMUP):
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses, counts = [], [], []
+    for i in range(FUSED_STEPS):
+        kc.reset_launch_counts()
+        start = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - start) * 1e3)
+        counts.append(kc.launch_counts())
+        losses.append({k: v.item() for k, v in metrics.items()})
+        if not all(np.isfinite(v) for v in losses[-1].values()):
+            raise AssertionError(f'{cfg.backbone.backbone_type} step {i}: '
+                                 f'losses {losses[-1]}')
+        if counts[-1]['nms_keep'] == 0:
+            raise AssertionError(f'step {i}: nms_keep not launched')
+    out = dict(steps=FUSED_STEPS, ms_per_step=statistics.median(times),
+               step_ms=times, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               first_losses=losses[0], last_losses=losses[-1],
+               launches={k: sum(c[k] for c in counts) for k in counts[0]},
+               launches_per_step=counts[-1])
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def mask_branch_line(name: str, paths: dict) -> str:
+    return ', '.join(
+        f'{mode} host {paths[f"{name} {mode}"]["stages"]["mask_branch"]["host_ms"]:.2f}'
+        f' / busy {paths[f"{name} {mode}"]["stages"]["mask_branch"].get("busy_ms", 0.0):.2f} ms'
+        for mode in MODES)
+
+
+def run_fused(mt, kc, headline=None, per_level_train=None) -> dict:
+    """Phase 12: the fused mask head (``compute.fused_mask_head``). The
+    narrow float32 headline model with it, card against CPU
+    (``check_reference``); the full-width headline predictor with it (b16,
+    512 px, bf16, forced dense) in the three modes, K1 launched never, K2
+    once and K3 twice a forward, beside the per-level headline's serve paths
+    (``headline``: phase 5's, else served here); FUSED_STEPS counted steps
+    of the bench train config with it, beside the per-level config's
+    (``per_level_train``: phase 6's, else FUSED_STEPS steps here). Its own
+    random inputs (RandomState(12)), so later phases draw as before."""
+    rng = np.random.RandomState(12)
+    cfg = narrow(fused(headline_config(mt)))
+    cfg.compute.compute_dtype = 'float32'
+    out = dict(reference=check_reference(mt, rng, cfg))
+    print(f'reference fused: {json.dumps(out["reference"])}', flush=True)
+    if headline is None:
+        headline, _ = serve_deployment(mt, kc, rng, 'headline',
+                                       headline_config(mt), BATCH)
+    out['serve'], _ = serve_deployment(mt, kc, rng, 'fused',
+                                       fused(headline_config(mt)), BATCH,
+                                       per_forward=FUSED_PER_FORWARD)
+    print(f'fused vs per-level headline, mask branch: fused '
+          f'{mask_branch_line("fused", out["serve"])}; per-level '
+          f'{mask_branch_line("headline", headline)}; img/s fused '
+          f'{[round(out["serve"][f"fused {m}"]["img_per_s"], 2) for m in MODES]}'
+          f' per-level '
+          f'{[round(headline[f"headline {m}"]["img_per_s"], 2) for m in MODES]}',
+          flush=True)
+    out['per_level_serve'] = {
+        m: dict(img_per_s=headline[f'headline {m}']['img_per_s'],
+                p50_batch_ms=headline[f'headline {m}']['p50_batch_ms'],
+                mask_branch=headline[f'headline {m}']['stages']['mask_branch'])
+        for m in MODES}
+    out['train'] = short_train(mt, kc, fused(train_config(mt)))
+    if per_level_train is None:
+        per_level_train = short_train(mt, kc, train_config(mt))
+    out['per_level_train_ms'] = per_level_train['ms_per_step']
+    t = out['train']
+    print(f'fused train: resnext50 bf16 b{TRAIN_BATCH}@{TRAIN_SIZE}, '
+          f'{t["ms_per_step"]:.2f} '
+          f'ms/step (median of {t["steps"]}; steps '
+          f'{[round(x, 2) for x in t["step_ms"]]}), per-level '
+          f'{per_level_train["ms_per_step"]:.2f} ms/step; peak '
+          f'{t["peak_memory_bytes"] / 2**30:.2f} GiB, losses '
+          f'{json.dumps(t["first_losses"])} -> {json.dumps(t["last_losses"])}'
+          f', launches per step {json.dumps(t["launches_per_step"])}',
+          flush=True)
+    return out
+
+
+# ---- phase 13: the learning gates, examples/torch/06 and 07 ----
+
+ACCEPTANCE_GATES = ('06_overfit_acceptance.py', '07_generalization_gate.py')
+
+
+def load_example(name: str):
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'examples', 'torch', name)
+    spec = importlib.util.spec_from_file_location(name[:2], path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_acceptance(kc) -> dict:
+    """Phase 13: each gate's ``main`` on the card from a fresh synthetic set
+    in a directory of its own (06: 8 images; 07: 30, its seed-777 split),
+    at the gate's settings, its launches counted from 0 just before it. A
+    gate below its floor raises (its AssertionError is not caught); K1, K1's
+    backward and K3 must launch. Every map the gates give K1 and K1's
+    backward is recorded, and each kernel is then held against its plain
+    version at every distinct one, in its dtype, relu off and on."""
+    import tempfile
+    out, fwd_maps, bwd_maps = {}, [], []
+    for name in ACCEPTANCE_GATES:
+        ex = load_example(name)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            kc.reset_launch_counts()
+            with recorded_k1_maps() as fwd, \
+                    recorded_k1_backward_maps() as bwd:
+                metrics = ex.main(os.path.join(tmp, 'data'),
+                                  os.path.join(tmp, 'logs'), DEVICE)
+                torch.cuda.synchronize()
+            counts = kc.launch_counts()
+        for kernel in ('band_groupnorm', 'band_groupnorm_backward',
+                       'nms_keep'):
+            if counts[kernel] == 0:
+                raise AssertionError(f'acceptance {name}: {kernel} not '
+                                     'launched')
+        fwd_maps += fwd
+        bwd_maps += bwd
+        gate = name[:2]
+        out[gate] = dict(metrics, launches=counts,
+                         floors=[ex.MASK_MIOU_FLOOR, ex.SEMANTIC_MIOU_FLOOR],
+                         k1_calls=len(fwd), k1_backward_calls=len(bwd))
+        print(f'acceptance {gate}: mask mIoU {metrics["mask_miou"]:.4f} '
+              f'(floor {ex.MASK_MIOU_FLOOR}), semantic mIoU '
+              f'{metrics["semantic_miou"]:.4f} (floor '
+              f'{ex.SEMANTIC_MIOU_FLOOR}), {metrics["images"]} images '
+              f'evaluated, {metrics["steps"]} steps, wall '
+              f'{metrics["wall_s"]:.1f} s (train {metrics["train_s"]:.1f}, '
+              f'eval {metrics["eval_s"]:.1f}), {metrics["img_per_s"]:.2f} '
+              f'img/s trained, launches {json.dumps(counts)}', flush=True)
+    start = time.perf_counter()
+    k1 = k1_at_maps(kc, np.random.RandomState(15), fwd_maps)
+    k1b = k1_backward_at_maps(kc, np.random.RandomState(16), bwd_maps)
+    kinds = sorted({(c['groups'], c['shape'][1], c['shape'][2],
+                     str(c['dtype'])) for c in k1 + k1b}, key=str)
+    out['k1_maps'] = dict(
+        k1_calls=len(fwd_maps), k1_backward_calls=len(bwd_maps),
+        k1_cases=len(k1), k1_backward_cases=len(k1b),
+        groups_q_c_dtype=[list(k) for k in kinds],
+        k1_f32_max_abs_err=max(
+            [c['err'] for c in k1 if c['dtype'] == 'float32'], default=None),
+        k1_bf16_max_ulp=max(
+            [c['err'] for c in k1 if c['dtype'] == 'bfloat16'], default=None),
+        k1_backward_f32_dx_max_abs_err=max(
+            [c['dx_err'] for c in k1b if c['dtype'] == 'float32'],
+            default=None),
+        k1_backward_bf16_dx_max_ulp=max(
+            [c['dx_err'] for c in k1b if c['dtype'] == 'bfloat16'],
+            default=None),
+        k1_backward_param_max_rel_err=max(c['param_err'] for c in k1b),
+        check_s=time.perf_counter() - start)
+    print(f'acceptance K1 maps: {json.dumps(out["k1_maps"])}', flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernels-only', action='store_true',
@@ -3576,6 +3838,12 @@ def main() -> int:
     parser.add_argument('--parallel-only', action='store_true',
                         help='card, build and phase 11 (data parallelism) '
                         'only')
+    parser.add_argument('--fused-only', action='store_true',
+                        help='card, build and phase 12 (the fused mask '
+                        'head) only')
+    parser.add_argument('--acceptance-only', action='store_true',
+                        help='card, build and phase 13 (the learning gates, '
+                        'examples/torch/06 and 07) only')
     parser.add_argument('--multi-card', action='store_true',
                         help='card, build, and data parallelism over every '
                         'card present (two at least): NCCL ranks, the CLI '
@@ -3620,6 +3888,12 @@ def main() -> int:
         return 0
     if args.parallel_only:
         finish(card, {'parallel': run_parallel(mt, kc)})
+        return 0
+    if args.fused_only:
+        finish(card, {'fused': run_fused(mt, kc)})
+        return 0
+    if args.acceptance_only:
+        finish(card, {'acceptance': run_acceptance(kc)})
         return 0
     if args.multi_card:
         finish(card, {'multi_card': run_multi_card(mt)})
@@ -3687,15 +3961,20 @@ def main() -> int:
                                        trained.pop('k1_backward_shapes'))
     print(f'kernel band_groupnorm_backward at the train maps: '
           f'{json.dumps(k1b["train_maps"])}', flush=True)
+    fused_head = run_fused(mt, kc, serve, trained)
     deployed = run_deployment(mt, kc)
     parallel = run_parallel(mt, kc)
     trainer = run_trainer(mt, kc, rng)
+    acceptance = run_acceptance(kc)
     paths = dict(serve, train=trained, trainer=dict(
         launches={k: sum(c[k] for c in trainer['launches_per_step'])
                   for k in TRAINER_KERNELS}),
         deployment=deployed['deployment'], separable=deployed['separable'],
         parallel=parallel['fullwidth'],
-        **{'serving mesh': parallel['serving_mesh']})
+        **{'serving mesh': parallel['serving_mesh']}, **fused_head['serve'],
+        **{'fused train': fused_head['train']},
+        **{f'acceptance {g}': a for g, a in acceptance.items()
+           if g != 'k1_maps'})
     for k in kernels:
         k['launches_by_path'] = {p: v['launches'][k['name']]
                                  for p, v in paths.items()}
@@ -3710,7 +3989,8 @@ def main() -> int:
     print(f'total: {time.perf_counter() - STARTED:.1f} s', flush=True)
     finish(card, {'kernels': kernels, 'serve': serve, 'train': trained,
                   'trainer': trainer, 'reference': reference, **deployed,
-                  'parallel': parallel, **more})
+                  'parallel': parallel, 'fused': fused_head,
+                  'acceptance': acceptance, **more})
     return 0
 
 

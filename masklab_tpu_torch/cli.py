@@ -280,8 +280,11 @@ def cmd_export(args) -> None:
       writes a self-contained versioned bundle ``<bundle_root>/<N>/`` (N
       = 1, 2, ...): the best checkpoint, config.json and
       serving_config.json, which ``serve -train.save_dir <bundle>`` loads
-      by path alone. ``--h5`` (the reference's h5 weights) is not ported
-      and warns; the bundle stands without it.
+      by path alone. ``--h5`` adds ``model.h5``, the weights in the
+      reference's Keras h5 format, written through the reference's own
+      network (``utils/keras_export.py``); where the reference or
+      TensorFlow cannot be imported it warns and the bundle stands
+      without it.
     """
     if not args or args[0].startswith('-'):
         raise SystemExit('usage: export <save_dir> [--dest=<bundle_root>] '
@@ -321,11 +324,29 @@ def cmd_export(args) -> None:
     cfg.save_json(os.path.join(bundle, 'config.json'))
     cfg.save_json(os.path.join(bundle, 'serving_config.json'))
     if want_h5:
-        print('WARNING: --h5 export skipped (NotImplementedError: the '
-              "reference's h5 weights are not ported to PyTorch yet "
-              '(ROADMAP.md, Queue 1 item 6))', file=sys.stderr)
+        _export_reference_h5(cfg, bundle)
     print(f'bundle exported to {bundle} '
           f'(serve with: -train.save_dir {bundle})')
+
+
+def _export_reference_h5(cfg, bundle: str) -> None:
+    """Best-effort reference-format h5 into the bundle (the port's weights
+    transplanted into the reference's network, ``utils/keras_export.py``).
+    Needs the reference checkout and TensorFlow importable; a failure must
+    not void the bundle itself."""
+    try:
+        from .models.masklab import MaskLab
+        from .train.checkpoints import CheckpointManager, load_variables
+        from .utils import keras_export as ke
+        model = load_variables(MaskLab(cfg), CheckpointManager(
+            bundle, None).restore_variables())
+        net = ke.build_reference_inference_network(cfg)
+        ke.transplant_into_reference(model, cfg, net)
+        ke.save_reference_h5(net, os.path.join(bundle, 'model.h5'))
+        print(f'reference-format weights: {bundle}/model.h5')
+    except Exception as exc:  # noqa: BLE001 (an optional artifact)
+        print(f'WARNING: --h5 export skipped ({type(exc).__name__}: '
+              f'{str(exc)[:200]})', file=sys.stderr)
 
 
 COMMANDS = {'train': cmd_train, 'eval': cmd_eval, 'serve': cmd_serve,

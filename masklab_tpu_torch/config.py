@@ -5,8 +5,8 @@ PyTorch port imports nothing of the JAX package. Configurations saved by
 either package load in the other. The ``compute`` group's TPU layout knobs
 (capacity ladder, model mesh) are accepted and ignored by the port; remat
 recomputes the backbone in the backward pass; ``mesh_data`` asks the trainer
-for data parallelism over that many cards (clamped to those present); the
-fused mask head, which changes the model, raises where the reference builds
+for data parallelism over that many cards (clamped to those present);
+``fused_mask_head`` builds the fused mask head where the reference builds
 it.
 
 Re-design of the reference's ``ModelConfiguration``
@@ -215,9 +215,11 @@ class ComputeConfig:
     # The fields below are the JAX package's TPU knobs (mesh axes, remat,
     # fused mask head, capacity-bucketed mask compaction). They are kept so
     # that configurations round-trip between the packages. The port's mask
-    # branch always runs each level's head on exactly that level's boxes;
-    # MaskLab honours remat_backbone (torch.utils.checkpoint) and refuses
-    # fused_mask_head where the reference would build FusedMaskSubNet; the
+    # branch always runs each level's head on exactly that level's boxes
+    # (mask_compaction and the capacity fractions are ignored); MaskLab
+    # honours remat_backbone (torch.utils.checkpoint) and builds the fused
+    # mask head where the reference builds FusedMaskSubNet (the flag set,
+    # instance heads neither separable nor squeeze-excite); the
     # trainer clamps mesh_data to the cards present, as the reference
     # clamps it to its devices, and trains one rank a card
     # (train/trainer.py); mesh_model is ignored, as the reference's trainer

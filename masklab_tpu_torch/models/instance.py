@@ -108,35 +108,49 @@ class MaskSubNet(nn.Module):
         if len(features) != self.num_levels:
             raise ValueError(f'{len(features)} feature levels != '
                              f'{self.num_levels} mask heads')
-        b, k = levels.shape
-        ch, cw = crop_size
-        norm = cxcywh_to_yxyx(boxes[..., :4].float(), image_hw)
-        out = torch.zeros((b, k, 2 * ch, 2 * cw, self.num_classes),
-                          dtype=torch.float32, device=boxes.device)
-        levels_host = levels.cpu()
-        for idx, fmap in enumerate(features):
-            is_l = levels_host == idx                             # [B, K]
-            counts = is_l.sum(1)
-            cap = int(counts.max())
-            if cap == 0:
-                continue
-            # this level's boxes first per image, in their original order
-            order = torch.argsort((~is_l).to(torch.int8), dim=1,
-                                  stable=True)[:, :cap]           # [B, cap]
-            live = torch.arange(cap)[None, :] < counts[:, None]   # [B, cap]
-            img = torch.arange(b)[:, None].expand(b, cap)[live]
-            slot = order[live]
-            sel = order.to(boxes.device)
-            sel_boxes = torch.gather(norm, 1, sel[..., None].expand(-1, -1, 4))
-            crops = batched_crop_and_resize(fmap.permute(0, 2, 3, 1),
-                                            sel_boxes, crop_size)
-            crops = crops[live.to(boxes.device)]                  # [n, ch, cw, C]
-            head_in = crops.permute(0, 3, 1, 2).contiguous(
-                memory_format=torch.channels_last)
-            y = getattr(self, f'level_{idx}')(head_in)            # [n, cls, 2ch, 2cw]
-            out[img.to(boxes.device), slot.to(boxes.device)] = (
-                y.permute(0, 2, 3, 1).float())
-        return out
+        return routed_heads(
+            features, boxes, levels, image_hw, crop_size, self.num_classes,
+            lambda idx, x: getattr(self, f'level_{idx}')(x))
+
+
+def routed_heads(features: Sequence[torch.Tensor], boxes: torch.Tensor,
+                 levels: torch.Tensor, image_hw: Tuple[int, int],
+                 crop_size: Tuple[int, int], num_classes: int,
+                 head) -> torch.Tensor:
+    """Crop each box from its own level and run that level's head on it:
+    ``head(idx, crops)`` maps level idx's crops [n, C, ch, cw]
+    (channels_last) to [n, classes, 2ch, 2cw]. Masks [B, K, 2ch, 2cw,
+    classes] float32, written back by index, zeros for boxes of level -1.
+    Reads the levels on the host once."""
+    b, k = levels.shape
+    ch, cw = crop_size
+    norm = cxcywh_to_yxyx(boxes[..., :4].float(), image_hw)
+    out = torch.zeros((b, k, 2 * ch, 2 * cw, num_classes),
+                      dtype=torch.float32, device=boxes.device)
+    levels_host = levels.cpu()
+    for idx, fmap in enumerate(features):
+        is_l = levels_host == idx                                 # [B, K]
+        counts = is_l.sum(1)
+        cap = int(counts.max())
+        if cap == 0:
+            continue
+        # this level's boxes first per image, in their original order
+        order = torch.argsort((~is_l).to(torch.int8), dim=1,
+                              stable=True)[:, :cap]               # [B, cap]
+        live = torch.arange(cap)[None, :] < counts[:, None]       # [B, cap]
+        img = torch.arange(b)[:, None].expand(b, cap)[live]
+        slot = order[live]
+        sel = order.to(boxes.device)
+        sel_boxes = torch.gather(norm, 1, sel[..., None].expand(-1, -1, 4))
+        crops = batched_crop_and_resize(fmap.permute(0, 2, 3, 1),
+                                        sel_boxes, crop_size)
+        crops = crops[live.to(boxes.device)]                      # [n, ch, cw, C]
+        head_in = crops.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        y = head(idx, head_in)                                    # [n, cls, 2ch, 2cw]
+        out[img.to(boxes.device), slot.to(boxes.device)] = (
+            y.permute(0, 2, 3, 1).float())
+    return out
 
 
 def assign_masks(roi_boxes: torch.Tensor, gt_boxes: torch.Tensor,

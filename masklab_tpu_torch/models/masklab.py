@@ -5,10 +5,11 @@ Port of ``masklab_tpu/models/masklab.py`` (``raw_heads`` :138-164,
 :209-244): shared backbone, FPN, cls/loc heads, detection-config NMS, the
 routed mask branch and the semantic head, with squeeze-excite heads (the
 road preset) and separable heads (``use_separable_conv``) where the
-configuration asks for them, and the backbone recomputed in the backward
-pass under ``compute.remat_backbone``. The fused mask head
-(``fused_mask_head`` with plain instance heads) is not ported yet and
-raises. The BatchNorm mode is
+configuration asks for them, the backbone recomputed in the backward
+pass under ``compute.remat_backbone``, and the fused mask head
+(``models/fused_mask_head.py``) where the reference builds it:
+``compute.fused_mask_head`` with instance heads neither separable nor
+squeeze-excite. The BatchNorm mode is
 the module's: ``model.train()`` for the reference's ``train=True``.
 Public outputs keep the reference's layouts: NHWC images in, ``cls_pred``
 [B, N, C], ``roi_boxes`` [B, K, 6], ``roi_masks`` [B, K, 28, 28, C] and
@@ -32,6 +33,7 @@ from ..ops.boxes import decode_boxes
 from ..ops.nms import batched_class_aware_nms
 from ..prior import generate_priors, priors_from_config
 from .detection import BoxRegressionSubNet, ClassificationSubNet, FeaturePyramid
+from .fused_mask_head import FusedMaskSubNet
 from .instance import MaskSubNet, mask_distribute
 from .semantic import ASPPNetwork, SegmentationSubNet
 
@@ -75,14 +77,6 @@ class MaskLab(nn.Module):
             return body_channels[name]
 
         det, ins, sem = cfg.detection, cfg.instance, cfg.semantic
-        # the reference's condition for FusedMaskSubNet
-        # (masklab_tpu/models/masklab.py:104-106): it changes the model, so
-        # the port refuses it rather than build the per-level heads
-        if (cfg.compute.fused_mask_head and not ins.use_separable_conv
-                and not ins.use_squeeze_excite):
-            raise NotImplementedError(
-                'compute.fused_mask_head (FusedMaskSubNet) is not ported to '
-                'PyTorch yet (ROADMAP.md, Queue 1)')
         self.fpn = FeaturePyramid([channels(n) for n in self.fpn_names],
                                   det.num_features, dtype)
         feat_ch = ([det.num_features] * len(self.fpn_names)
@@ -100,16 +94,24 @@ class MaskLab(nn.Module):
         # road preset's box head has none
         self.loc_subnet = BoxRegressionSubNet(
             feat_ch, use_squeeze_excite=det.use_separable_conv, **common)
-        # the reference's quirk, kept: the mask and segmentation heads'
-        # expand_ratio is float(use_separable_conv), 1.0 when separable
-        # (masklab_tpu/models/masklab.py:117-119, :132)
-        self.mask_subnet = MaskSubNet(feat_ch[:ins.max_k + 1], num_det,
-                                      ins.num_depth, ins.num_features,
-                                      ins.groups, dtype,
-                                      ins.use_squeeze_excite,
-                                      ins.squeeze_ratio,
-                                      ins.use_separable_conv,
-                                      float(ins.use_separable_conv))
+        # the reference's condition for FusedMaskSubNet
+        # (masklab_tpu/models/masklab.py:104-106)
+        if (cfg.compute.fused_mask_head and not ins.use_separable_conv
+                and not ins.use_squeeze_excite):
+            self.mask_subnet = FusedMaskSubNet(
+                ins.max_k + 1, feat_ch[0], num_det, ins.num_depth,
+                ins.num_features, ins.groups, dtype)
+        else:
+            # the reference's quirk, kept: the mask and segmentation heads'
+            # expand_ratio is float(use_separable_conv), 1.0 when separable
+            # (masklab_tpu/models/masklab.py:117-119, :132)
+            self.mask_subnet = MaskSubNet(feat_ch[:ins.max_k + 1], num_det,
+                                          ins.num_depth, ins.num_features,
+                                          ins.groups, dtype,
+                                          ins.use_squeeze_excite,
+                                          ins.squeeze_ratio,
+                                          ins.use_separable_conv,
+                                          float(ins.use_separable_conv))
         self.aspp = ASPPNetwork(channels(sem.aspp_input_name),
                                 sem.num_aspp_features, sem.atrous_rate,
                                 sem.atrous_groups, dtype)
@@ -172,7 +174,9 @@ class MaskLab(nn.Module):
 
     def mask_branch(self, features, boxes: torch.Tensor,
                     image_hw) -> torch.Tensor:
-        """boxes [B, K, >=6] -> masks [B, K, 2ch, 2cw, num_det_classes]."""
+        """boxes [B, K, >=6] -> masks [B, K, 2ch, 2cw, num_det_classes].
+        The fused head takes each box's crop from its own level (the
+        reference's ``mask_compaction`` is bypassed there too)."""
         ins = self.config.instance
         levels = mask_distribute(boxes, ins.max_k, ins.base_size)
         return self.mask_subnet(features[:ins.max_k + 1], boxes, levels,

@@ -51,6 +51,12 @@ _BODIES = {
 PORTED_BACKBONES = tuple(_BODIES)
 
 
+def body_module_name(backbone_type: str) -> str:
+    """The body's child name inside ``BackboneNetwork`` (its flax module
+    name, e.g. ``'MobileNetV1_0'``)."""
+    return _BODIES[_check_ported(backbone_type)][2]
+
+
 def _check_ported(backbone_type: str) -> str:
     name = backbone_type.lower()
     if name not in _BODIES:
@@ -288,4 +294,4 @@ def module_frozen(backbone_type: str, module_name: str,
 
 __all__ = ['BackboneNetwork', 'backbone_channels', 'grid_padding',
            'module_frozen', 'preprocess_for', 'PREPROCESS_COMBOS',
-           'PORTED_BACKBONES']
+           'PORTED_BACKBONES', 'body_module_name']

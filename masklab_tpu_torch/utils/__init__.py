@@ -1,4 +1,10 @@
-"""Training observability: the metric loggers."""
+"""Utilities: profiling and tracing, the metric loggers, host drawing, and
+the reference's Keras h5 weights in and out (``keras_import``,
+``keras_export``)."""
 from .loggers import CSVLogger, MLflowLogger, MultiLogger, TensorBoardLogger
+from .profiling import (StageTimer, device_trace, enable_compilation_cache,
+                        timed_blocked)
 
-__all__ = ['CSVLogger', 'TensorBoardLogger', 'MLflowLogger', 'MultiLogger']
+__all__ = ['StageTimer', 'device_trace', 'timed_blocked',
+           'enable_compilation_cache', 'CSVLogger', 'TensorBoardLogger',
+           'MLflowLogger', 'MultiLogger']

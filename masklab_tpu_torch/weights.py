@@ -15,7 +15,9 @@ port's submodules carry the flax module names, so a torch module at
     squeeze-excite layers);
   * BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
     running_mean/running_var (no scale where the BatchNorm has none);
-    GroupNorm scale/bias as they are.
+    GroupNorm scale/bias as they are;
+  * the fused mask head's level-stacked parameters (``conv0_kernel``, ...)
+    as they are, under the module's own path.
 
 Any flax leaf left unused, or torch parameter left unfilled, raises.
 ``flax_names`` and ``to_flax_tree`` expose the same mapping the other way
@@ -33,11 +35,12 @@ import torch
 from torch import nn
 
 from .models.detection import BoxRegressionSubNet, ClassificationSubNet
+from .models.fused_mask_head import FusedMaskSubNet
 from .models.instance import LevelMaskHead, PixelShuffleUp
 from .nn.layers import BatchNorm, GroupNorm, HeadBlock, SqueezeExcite
 
 _LEAF_TYPES = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, GroupNorm,
-               BatchNorm)
+               BatchNorm, FusedMaskSubNet)
 # focal-loss prior bias of the class outputs, -log((1 - .01) / .01)
 PRIOR_BIAS = -float(np.log((1 - 0.01) / 0.01))
 
@@ -69,6 +72,9 @@ def _leaf_specs(module: nn.Module):
     """[(torch attribute, flax collection, flax leaf name, to_torch,
     to_flax)] of one leaf module: how each of its tensors maps to a flax
     leaf and back."""
+    if isinstance(module, FusedMaskSubNet):
+        return [(name, 'params', name, _same, _same)
+                for name, _ in module.named_parameters(recurse=False)]
     if isinstance(module, PixelShuffleUp):
         specs = [('weight', 'params', 'kernel', _pixel_shuffle_to_torch,
                   _pixel_shuffle_to_flax)]
@@ -186,7 +192,8 @@ def _variance_scaling(shape, scale: float, fan: int, gen) -> torch.Tensor:
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights after the reference's initializers:
     truncated-normal lecun init for convs and Dense layers (flax's
-    default), normal(0.01) for the head convs, he / glorot normal for the
+    default), normal(0.01) for the head convs and the fused mask head's
+    kernels, he / glorot normal for the
     heads' squeeze-excite layers, the focal prior bias -log(99) on the
     class outputs, unit scales and zero biases for the norms. Drawn on the
     CPU from one ``torch.Generator``, so a seed gives the same model on any
@@ -219,6 +226,13 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
                 if module.bias is not None:
                     module.bias.fill_(PRIOR_BIAS if module in cls_outputs
                                       else 0.0)
+            elif isinstance(module, FusedMaskSubNet):
+                for name, p in module.named_parameters(recurse=False):
+                    if name.endswith('_kernel'):
+                        w = torch.empty(p.shape, dtype=torch.float32)
+                        p.copy_(nn.init.normal_(w, 0.0, 0.01, generator=gen))
+                    else:
+                        p.fill_(1.0 if name.endswith('_scale') else 0.0)
             elif isinstance(module, nn.Linear):
                 scale, fan = se_scaling.get(module,
                                             (1.0, module.in_features))

@@ -18,8 +18,10 @@ FORBIDDEN = re.compile(r'^(?:jax|flax)\b|\bmasklab_tpu\b(?!_torch)')
 
 def _port_sources():
     paths = [os.path.join(ROOT, 'chip_smoke.py')]
-    for base, _, files in os.walk(os.path.join(ROOT, 'masklab_tpu_torch')):
-        paths += [os.path.join(base, f) for f in files if f.endswith('.py')]
+    for top in ('masklab_tpu_torch', os.path.join('examples', 'torch')):
+        for base, _, files in os.walk(os.path.join(ROOT, top)):
+            paths += [os.path.join(base, f) for f in files
+                      if f.endswith('.py')]
     return sorted(paths)
 
 
@@ -46,16 +48,24 @@ DEPLOY_MODULES = ['nn.backbone.efficientnet', 'nn.backbone.mobilenetv2',
                   'nn.backbone.vgg', 'serving.batching', 'serving.server']
 # the data-parallel slice's modules
 PARALLEL_MODULES = ['parallel.mesh', 'parallel.multihost']
+# the fused head and the utilities; TensorFlow is imported only inside the
+# reference's functions of keras_export / ref_shim
+UTILITY_MODULES = ['models.fused_mask_head', 'utils.keras_import',
+                   'utils.keras_export', 'utils.ref_shim', 'utils.profiling',
+                   'utils.visualize']
 
 
 @pytest.mark.parametrize('module', TRAINING_MODULES + DEPLOY_MODULES
-                         + PARALLEL_MODULES)
+                         + PARALLEL_MODULES + UTILITY_MODULES)
 def test_training_module_imports_no_jax_reference_or_pandas(module):
     """Imported alone in a fresh interpreter: no jax, flax or masklab_tpu
-    module is loaded, nor pandas by a data module."""
+    module is loaded, nor pandas by a data module, nor TensorFlow by a
+    utility."""
     banned = "('jax', 'flax', 'masklab_tpu.')"
     if module.startswith('data.'):
         banned = "('jax', 'flax', 'masklab_tpu.', 'pandas')"
+    elif module in UTILITY_MODULES:
+        banned = "('jax', 'flax', 'masklab_tpu.', 'tensorflow', 'keras')"
     code = (f"import sys, masklab_tpu_torch.{module}; "
             f"bad = sorted(m for m in sys.modules if m.startswith({banned}) "
             "or m == 'masklab_tpu'); assert not bad, bad")
@@ -76,9 +86,12 @@ def test_sources_import_nothing_of_jax_or_the_reference():
     for module in ('train/steps.py', 'train/optimizers.py', 'train/state.py',
                    'losses.py', 'metrics.py', 'data/synthetic.py',
                    *(m.replace('.', '/') + '.py' for m in
-                     TRAINING_MODULES + DEPLOY_MODULES if m != 'native'),
+                     TRAINING_MODULES + DEPLOY_MODULES + UTILITY_MODULES
+                     if m != 'native'),
                    'native/__init__.py', 'nn/backbone/resnet.py'):
         assert os.path.join('masklab_tpu_torch', module) in walked, module
+    assert os.path.join('examples', 'torch', '06_overfit_acceptance.py') \
+        in walked
     assert not offenders, offenders
 
 
@@ -141,24 +154,20 @@ def test_separable_heads_raise(group):
 
 
 @pytest.mark.parametrize('preset', ['mobilenet', 'road'])
-def test_fused_mask_head_raises(preset):
-    """``compute.fused_mask_head`` changes the model where the reference
-    builds ``FusedMaskSubNet`` (the flag set, instance heads neither
-    separable nor squeeze-excite): the port raises there. The road preset's
-    squeeze-excite instance heads make the reference ignore the flag, so
-    the port builds its model."""
+def test_fused_mask_head_condition(preset):
+    """``compute.fused_mask_head`` builds ``FusedMaskSubNet`` where the
+    reference does (the flag set, instance heads neither separable nor
+    squeeze-excite). The road preset's squeeze-excite instance heads make
+    the reference ignore the flag, so the port builds the per-level
+    ``MaskSubNet`` there."""
     if preset == 'road':
         cfg = mt.road_project_config()
     else:
         cfg = mt.ModelConfiguration()
         cfg.backbone.backbone_type = 'mobilenet'
     cfg.compute.fused_mask_head = True
-    if preset == 'road':
-        assert type(mt.MaskLab(cfg).mask_subnet).__name__ == 'MaskSubNet'
-    else:
-        with pytest.raises(NotImplementedError,
-                           match='fused_mask_head.*ROADMAP'):
-            mt.MaskLab(cfg)
+    want = 'MaskSubNet' if preset == 'road' else 'FusedMaskSubNet'
+    assert type(mt.MaskLab(cfg).mask_subnet).__name__ == want
 
 
 def test_server_refuses_watch_dir(tmp_path):
