@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py [--kernels-only | --serve-only | --trainer-only
                            | --deploy-only | --parallel-only | --fused-only
-                           | --acceptance-only | --multi-card
-                           | --reference-draws N]
+                           | --acceptance-only | --spatial-only
+                           | --multi-card | --reference-draws N]
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -120,8 +120,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the run. K1 and K1's backward are then held against their plain
      versions at every distinct map the gates gave them (the small road
      model's float32 C=32, G=16 heads, cg 2), relu off and on.
+ 14. spatial: the dp x sp spatial sharding (``run_spatial``): JAX's
+     spatial test model (mobilenet, widths 16, 128 px) and the narrow
+     road preset at 56 x 96 (C3 7 rows, P6 1 row), float32, on a 1 x 2
+     and a 2 x 2 mesh of gloo ranks on the card against one process on
+     the card: ``raw_heads`` (the ranks' rows put together) and one train
+     step on the one-process run's decisions (``fixed_decisions``, each
+     rank its rows and blocks), each tensor within TRAIN_REF_RATIO x the
+     same mesh's distance on the CPU, every rank bitwise equal; then the
+     road preset at full width (bf16) at 1080 x 1920, a global batch of 2
+     on 1 x 2 gloo ranks sharing the card: one forward, PARALLEL_WARMUP +
+     SPATIAL_STEPS steps, K1, K1's backward, K2 and K3 launched in every
+     counted step on each rank, every loss finite, the ranks bitwise
+     equal; ms a step and img/s, peak memory a rank beside one process's
+     step at the same batch, a traced step's row exchanges, row gathers
+     and all-reduces and their share; K2 exact at its call on this path,
+     K1 and its backward held at every map the path gave them.
 
-Phases 8-11 run after phase 12, phase 7 after them, and phase 13 last.
+Phases 8-11 run after phase 12, phase 14 after them, phase 7 after it,
+and phase 13 last.
 
 Then it prints the ``kernels`` JSON line (each kernel's ``launches`` from
 the headline raw path, K1's backward's from the train path,
@@ -140,11 +157,14 @@ runs phases 1, 2, K2's check (without its edge cases) and phase 7.
 ``--deploy-only`` runs phases 1, 2 and 8-10, ``--parallel-only`` phases 1,
 2 and 11, ``--fused-only`` phases 1, 2 and 12 (serving the per-level
 headline and 5 per-level train steps beside it), ``--acceptance-only``
-phases 1, 2 and 13. ``--multi-card`` (two cards at least; not part of the default
+phases 1, 2 and 13, ``--spatial-only`` phases 1, 2 and 14.
+``--multi-card`` (two cards at least; not part of the default
 run, which needs one) runs phases 1, 2 and data parallelism over every
 card: the full-width step over one NCCL rank a card against one rank, the
 CLI trainer with ``compute.mesh_data`` = the cards, the serving mesh over
-them. ``--reference-draws N`` runs
+them, and (four cards) phase 14's full-width run on a 2 x 2 mesh of NCCL
+ranks, one a card, a global batch of 4; with ``--spatial-only``, only
+that. ``--reference-draws N`` runs
 phases 1, 2 and phase 4's train reference at N fresh batch seeds, reporting
 each verdict (a failing draw does not fail the run).
 """
@@ -1197,9 +1217,14 @@ def _near_mask_pixels(roi_boxes, gt_boxes, gt_masks, mask_hw, num_classes,
     """[B, R, mh, mw]: mask-target pixels a float32 rounding may change:
     every pixel of a RoI whose best same-class IoU is within TARGET_NEAR of
     the threshold or of another gt's, and each pixel whose crop is within
-    TARGET_NEAR of 0.5."""
+    TARGET_NEAR of 0.5. Sharded (phase 14), ``gt_masks`` holds this
+    rank's rows and the crops are summed over the ranks, as
+    ``assign_masks`` sums them."""
+    from masklab_tpu_torch.nn import spatial
     from masklab_tpu_torch.ops.boxes import cxcywh_to_yxyx, pairwise_iou
     from masklab_tpu_torch.ops.roi_align import crop_and_resize_indexed
+    image_hw = (spatial.frame_rows(gt_masks.shape[2]), gt_masks.shape[3])
+    rows = spatial.crop_rows(None, gt_masks.shape[2])
     out = []
     for rois, gts, masks in zip(roi_boxes.float(), gt_boxes.float(),
                                 gt_masks):
@@ -1210,10 +1235,9 @@ def _near_mask_pixels(roi_boxes, gt_boxes, gt_masks, mask_hw, num_classes,
         near_roi = (((best - match_iou_threshold).abs() <= TARGET_NEAR)
                     | (((iou >= best - TARGET_NEAR).sum(0) > 1)
                        & (best >= match_iou_threshold - TARGET_NEAR)))
-        crops = crop_and_resize_indexed(
-            masks[..., None].float(),
-            cxcywh_to_yxyx(rois[:, :4], gt_masks.shape[2:4]),
-            iou.argmax(0), mask_hw)[..., 0]
+        crops = spatial.reduce_crops(crop_and_resize_indexed(
+            masks[..., None].float(), cxcywh_to_yxyx(rois[:, :4], image_hw),
+            iou.argmax(0), mask_hw, rows))[..., 0]
         out.append(near_roi[:, None, None]
                    | ((crops - 0.5).abs() <= TARGET_NEAR))
     return torch.stack(out)
@@ -1224,8 +1248,8 @@ def target_flips(name: str, args: tuple, own, want) -> tuple:
     the CPU), from the target function's arguments ``args``: -> (entries
     that differ within TARGET_NEAR of a threshold or a tie, entries that
     differ elsewhere). Entries are anchors, mask pixels or segmentation
-    pixels."""
-    from masklab_tpu_torch.ops.resize import resize_bilinear
+    pixels (sharded, this rank's rows of them)."""
+    from masklab_tpu_torch.nn import spatial
     args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)
     if name == 'batched_assign_boxes':
         (cls, loc, mark), (wcls, wloc, wmark) = own, want
@@ -1239,8 +1263,8 @@ def target_flips(name: str, args: tuple, own, want) -> tuple:
         near = _near_mask_pixels(*args)
     else:
         differ = own.double() != want
-        v = resize_bilinear(args[0].float(), args[1].shape[-3],
-                            args[1].shape[-2], align_corners=True)
+        v = spatial.resize_like(args[0].float(), args[1], 'assign_seg',
+                                align_corners=True, channels_last=True)
         near = ((v - v.floor()) - 0.5).abs() <= TARGET_NEAR
     return int((differ & near).sum()), int((differ & ~near).sum())
 
@@ -1259,15 +1283,17 @@ def rank_rows(t: torch.Tensor, n: int, part) -> torch.Tensor:
 
 @contextlib.contextmanager
 def fixed_decisions(decided=None, dtype=torch.float32, hold=True,
-                    part=None, fused=False):
+                    part=None, fused=False, sp=None, vectors=False):
     """With ``decided`` None (the witness), the step decides, and its
     answers to STEP_DECISIONS ({function name: answer}, on the CPU) and the
     signs of the input of every ReLU of a feature map (``torch.relu`` of a
-    4-D tensor; ``'relu'``, in call order) are recorded in the dict
+    4-D tensor; ``'relu'``, in call order), and of mobilenet's ReLU6 (its
+    input above 0 and at 6 or above; ``'relu6'``), are recorded in the dict
     yielded. Otherwise, within the block, each REPLAYED_DECISIONS function
     answers what ``decided`` holds for it, cast to ``dtype`` on the
     caller's device, and each ReLU of a feature map gates its input by the
-    recorded signs instead of its own; each HELD_TARGETS function computes
+    recorded signs instead of its own (a ReLU6 passes, zeroes or clamps to
+    6 as recorded); each HELD_TARGETS function computes
     its own answer, held against the witness's (``target_flips``: with
     ``hold``, an entry that differs away from a threshold raises; the counts
     are yielded under ``'held'``), and answers the witness's. A value within
@@ -1283,9 +1309,15 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True,
     applies none, and its input passes through the ReLU of a feature map
     above (recorded or gated like the others). ``part`` = (rank, 2): the
     block runs one of two ranks of a data-parallel step on its rows, and
-    takes its rows of ``decided`` (``rank_rows``)."""
+    takes its rows of ``decided`` (``rank_rows``). ``sp`` = (index, size)
+    on the model axis of a dp x sp step: a feature map's gate and the
+    segmentation target are then also the rank's block of rows
+    (``nn.spatial.blocks``); a map whole on every rank (a mask head's)
+    keeps its gate whole. ``vectors``: the ReLUs of [N, C] tensors (the
+    squeeze-excite's hidden units) are decided alike."""
+    from masklab_tpu_torch.nn.spatial import blocks
     import importlib
-    record, saved = {'relu': [], 'held': {}}, []
+    record, saved = {'relu': [], 'relu6': [], 'held': {}}, []
 
     def cpu(t):
         return tuple(map(cpu, t)) if isinstance(t, tuple) else t.cpu()
@@ -1300,6 +1332,12 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True,
         if isinstance(t, tuple):
             return tuple(rows(a, n) for a in t)
         return rank_rows(t, n, part)
+
+    def block(t, axis, local):
+        if sp is None or t.shape[axis] == local:
+            return t
+        a, b = blocks(t.shape[axis], sp[1])[sp[0]]
+        return t.narrow(axis, a, b - a)
 
     for module_name, fn_name in STEP_DECISIONS:
         module = importlib.import_module(module_name)
@@ -1316,6 +1354,8 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True,
                 record[_name] = cpu(out)
                 return out
             want = rows(decided[_name], args[0].shape[0])
+            if _name == 'assign_seg':
+                want = block(want, 1, args[1].shape[1])
             if _held:
                 near, away = target_flips(_name, args,
                                           cpu(_fn(*args, **kwargs)), want)
@@ -1331,18 +1371,35 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True,
     gates = iter(decided['relu']) if decided is not None else None
 
     def gated(x):
-        if x.dim() != 4:
+        if x.dim() != 4 and not (vectors and x.dim() == 2):
             return relu(x)
         if gates is None:
             record['relu'].append((x > 0).cpu())
             return relu(x)
-        gate = rank_rows(next(gates), x.shape[0], part).to(x.device)
+        gate = rank_rows(next(gates), x.shape[0], part)
+        if x.dim() == 4:
+            gate = block(gate, 2, x.shape[2])
+        gate = gate.to(x.device)
         if gate.shape != x.shape:
             raise AssertionError(f'relu gate {tuple(gate.shape)} for a map '
                                  f'{tuple(x.shape)}')
         return torch.where(gate, x, torch.zeros_like(x))
     saved.append((torch, 'relu', relu))
     torch.relu = gated
+    from masklab_tpu_torch.nn.backbone import mobilenet
+    relu6 = mobilenet.relu6
+    gates6 = iter(decided['relu6']) if decided is not None else None
+
+    def gated6(x):
+        if gates6 is None:
+            record['relu6'].append(((x > 0).cpu(), (x >= 6).cpu()))
+            return relu6(x)
+        pos, top = (block(rank_rows(g, x.shape[0], part), 2,
+                          x.shape[2]).to(x.device) for g in next(gates6))
+        return torch.where(top, torch.full_like(x, 6.0),
+                           torch.where(pos, x, torch.zeros_like(x)))
+    saved.append((mobilenet, 'relu6', relu6))
+    mobilenet.relu6 = gated6
     if fused:
         from masklab_tpu_torch.nn.layers import GroupNorm
         norm = GroupNorm.forward
@@ -1355,6 +1412,8 @@ def fixed_decisions(decided=None, dtype=torch.float32, hold=True,
         yield record
         if gates is not None and next(gates, None) is not None:
             raise AssertionError('fewer relu calls than the recorded run')
+        if gates6 is not None and next(gates6, None) is not None:
+            raise AssertionError('fewer relu6 calls than the recorded run')
     finally:
         for module, fn_name, original in saved:
             setattr(module, fn_name, original)
@@ -1370,8 +1429,9 @@ def _train_step_run(mt, cfg, batch, dev: str, float64: bool = False,
     float32 ulps of the parameter's largest entry}, which the subtraction
     leaves; the dict ``fixed_decisions`` yields: the step's discrete
     decisions, or the held targets' counts). ``float64``: parameters, convs
-    and BatchNorm in float64 (the loss terms, the heads' outputs and the
-    GroupNorm statistics stay float32, as the model computes them).
+    and BatchNorm in float64, GroupNorm's statistics with them (the loss
+    terms and the heads' outputs stay float32, as the model computes
+    them).
     ``decided``, ``hold``: another run's decisions, taken instead of this
     run's own, and whether its targets are held to them
     (``fixed_decisions``)."""
@@ -1392,7 +1452,7 @@ def _train_step_run(mt, cfg, batch, dev: str, float64: bool = False,
                          else torch.float32, hold) as record:
         state, metrics = train.make_train_step(model, with_metrics=False)(
             state, {k: v.to(dev) for k, v in batch.items()})
-    if decided is None and len(record) != len(STEP_DECISIONS) + 2:
+    if decided is None and len(record) != len(STEP_DECISIONS) + 3:
         raise AssertionError(f'train reference: decisions {sorted(record)} '
                              'in one step')
     out = {f'loss:{k}': v for k, v in metrics.items()}
@@ -3623,6 +3683,7 @@ def run_multi_card(mt) -> dict:
     out['mesh'] = multi_card_mesh(mt, np.random.RandomState(12), n)
     print(f'multi-card mesh: exact against the unsharded shards; '
           f'{json.dumps(out["mesh"])} (visualize b16)', flush=True)
+    out['spatial'] = run_spatial_multi_card(mt, None, n)
     return out
 
 
@@ -3821,6 +3882,542 @@ def run_acceptance(kc) -> dict:
     return out
 
 
+# ---- phase 14: the dp x sp spatial sharding ----
+
+# the narrow checks: JAX's spatial test model (mobilenet, widths 16, C3-C5)
+# at 128 px, and the narrow float32 road preset at 56 x 96 (C3 7 rows, an
+# odd count; P6 one row, fewer than the model axis has ranks); a global
+# batch of 2, on a 1 x 2 and a 2 x 2 mesh of gloo ranks on the card
+SPATIAL_MESHES = ((1, 2), (2, 2))
+SPATIAL_EQ_HW = {'jax_test': (128, 128), 'road': (56, 96)}
+SPATIAL_EQ_BATCH = 2
+# the full-width run: the road preset (seresnet34, squeeze-excite heads,
+# bf16, full widths) at a dashcam's 1080 x 1920, a global batch of 2 on a
+# 1 x 2 mesh of gloo ranks sharing the card (--multi-card: 2 x 2 over four
+# NCCL ranks, one a card, a global batch of 4)
+SPATIAL_HW, SPATIAL_BATCH, SPATIAL_STEPS = (1080, 1920), 2, 3
+SPATIAL_SPANS = ('collective:row_exchange', 'collective:row_gather',
+                 'collective:all_reduce', 'collective:rows')
+
+
+def spatial_eq_config(mt, name: str):
+    """The narrow checks' float32 models."""
+    cfg = mt.ModelConfiguration()
+    if name == 'road':
+        cfg = narrow(road_config(mt))
+    else:
+        cfg.backbone.backbone_type = 'mobilenet'
+        cfg.backbone.backbone_outputs = ('C3', 'C4', 'C5')
+        cfg.detection.feature_pyramid_inputs = ('C3', 'C4', 'C5')
+        cfg.backbone.num_features = 16
+        for g in (cfg.detection, cfg.instance, cfg.semantic):
+            g.num_features = 16
+            g.num_depth = 1
+        cfg.semantic.num_aspp_features = 16
+        cfg.detection.nms_max_output_size = 8
+        cfg.loss.nms_max_output_size = 8
+        cfg.compute.nms_candidates_per_class = 16
+    cfg.compute.compute_dtype = 'float32'
+    return cfg
+
+
+def spatial_run(mt, cfg, batch, dev, decided=None, mesh=None,
+                float64: bool = False) -> dict:
+    """``cfg``'s model (seed 2) on ``dev``: ``raw_heads`` in eval mode,
+    then one train step on ``batch`` (the global batch; under ``mesh``
+    this rank's piece of the dp x sp layout), on the decisions ``decided``
+    (``fixed_decisions``, the rank's rows and blocks) or, without, its own
+    recorded -> {'heads': cls_pred, loc_pred (this data row's), seg_pred
+    (this rank's rows), 'step': {name: value} as ``_train_step_run`` names
+    them, 'decided' (without ``decided``), 'held', 'slack', 'digest'}.
+    ``float64``: parameters, convs and BatchNorm in float64, as
+    ``_train_step_run``'s."""
+    import hashlib
+    from masklab_tpu_torch import parallel, train
+    model = mt.build_masklab(cfg, device=dev, seed=2)
+    if float64:
+        model.double()
+        for m in model.modules():
+            if hasattr(m, 'compute_dtype'):
+                m.compute_dtype = torch.float64
+        model.dtype = torch.float64
+        batch = {k: v.double() if v.is_floating_point() else v
+                 for k, v in batch.items()}
+    state = train.TrainState(model, train.rectified_adam(
+        train.cyclic_lr(1e-4, 1e-3, 700)))
+    part = sp = None
+    block = contextlib.nullcontext()
+    if mesh is not None:
+        import torch.distributed as dist
+        parallel.replicate_state(state, mesh)
+        layout = parallel.spatial_batch_sharding(batch, mesh)
+        batch = parallel.spatial_shard_batch(batch, mesh)
+        d, m = divmod(dist.get_rank(), mesh.model)
+        part = (d, mesh.shape['data']) if mesh.shape['data'] > 1 else None
+        sp = (m, mesh.model)
+        step = parallel.make_parallel_train_step(
+            model, mesh, with_metrics=False, batch_shardings=layout)
+        block = parallel.sharded(model, mesh)
+    else:
+        step = train.make_train_step(model, with_metrics=False)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    model.eval()
+    with torch.no_grad(), block:
+        out = model.raw_heads(batch['images'])
+    heads = {k: out[k].detach().cpu().double()
+             for k in ('cls_pred', 'loc_pred', 'seg_pred')}
+    start = {k: v.detach().clone() for k, v in model.named_parameters()}
+    with fixed_decisions(decided, torch.float64 if float64 else
+                         torch.float32, part=part, fused=True, sp=sp,
+                         vectors=True) as record:
+        state, metrics = step(state, batch)
+    values = {f'loss:{k}': v for k, v in metrics.items()}
+    values.update({f'grad:{k}': v for k, v in state.opt_state.mu.items()})
+    values.update({f'change:{k}': v.detach() - start[k]
+                   for k, v in model.named_parameters()})
+    values.update({f'stats:{k}': v for k, v in state.batch_stats.items()})
+    values.update({f'box:{j}': t
+                   for j, t in enumerate(state.box_loss_state)})
+    digest = hashlib.sha256()
+    for k, v in list(state.model.state_dict().items()) + [
+            (f'box{j}', t) for j, t in enumerate(state.box_loss_state)]:
+        digest.update(k.encode())
+        digest.update(v.detach().cpu().contiguous().view(
+            torch.uint8).numpy().tobytes())
+    run = dict(heads=heads, held=record['held'], digest=digest.hexdigest(),
+               step={k: v.detach().cpu().double()
+                     for k, v in values.items()},
+               slack={f'change:{k}': float(2 * np.spacing(np.float32(
+                   v.abs().max().item()))) for k, v in start.items()})
+    if decided is None:
+        run['decided'] = record
+    return run
+
+
+def _spatial_eq_rank(r, world, port, device, mesh_shape, cases):
+    """One rank of a narrow check: every case's ``spatial_run`` on the
+    mesh."""
+    import masklab_tpu_torch as mt
+    import torch.distributed as dist
+    from masklab_tpu_torch.parallel import make_mesh
+    torch.set_num_threads(1)
+    dev = _joined(r, world, port, device)
+    try:
+        mesh = make_mesh(*mesh_shape, devices=[dev] * world)
+        return {name: spatial_run(mt, mt.ModelConfiguration().from_dict(
+                    cfg), batch, dev, decided, mesh)
+                for name, (cfg, batch, decided) in cases.items()}
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_heads(runs: list, mesh_shape) -> dict:
+    """The whole batch's heads from a mesh's ranks (rank d * model + m):
+    each data row's cls / loc from its first rank, its seg rows put
+    together in rank order."""
+    data, model = mesh_shape
+    out = {}
+    for k in ('cls_pred', 'loc_pred', 'seg_pred'):
+        rows = []
+        for d in range(data):
+            ranks = runs[d * model:(d + 1) * model]
+            rows.append(torch.cat([x['heads'][k] for x in ranks], 1)
+                        if k == 'seg_pred' else ranks[0]['heads'][k])
+        out[k] = torch.cat(rows)
+    return out
+
+
+def check_spatial_equivalence(mt, rng) -> dict:
+    """The narrow float32 models (``spatial_eq_config``) on a 1 x 2 and a 2
+    x 2 mesh of gloo ranks on the card against one process: ``raw_heads``
+    (the ranks' rows put together) and one train step, every run on the
+    decisions of one float32 process on the card (the witness: its
+    loss-NMS proposals and ReLU gates, its targets held to the witness's;
+    ``fixed_decisions``, each rank its rows and blocks). As
+    ``check_train_reference`` holds a step: each tensor of the card's mesh
+    within TRAIN_REF_RATIO x the largest distance of three sound float32
+    runs of one process (the witness on the card, one on the CPU with its
+    default threads and one with one thread: other summation orders) from
+    a float64 step on the CPU on those decisions, plus TRAIN_REF_FLOOR of
+    the tensor's largest entry (and the parameter changes' 2 ulps). The
+    mesh's distance from one process on the CPU is no yardstick on the
+    card: cuDNN picks other algorithms for a rank's window of rows than
+    for the whole map, rounding the CPU's convolutions (each output
+    computed alike whatever the map's height) do not add; against it a
+    BatchNorm bias's gradient, a sum that cancels, read 7.9 on the first
+    run. On each mesh every rank's parameters, statistics and box state
+    equal bit for bit."""
+    from masklab_tpu_torch import train
+    from masklab_tpu_torch.data import make_random_batch
+    start = time.perf_counter()
+    laps, cases, sound, exact = {}, {}, {}, {}
+    for name, hw in SPATIAL_EQ_HW.items():
+        cfg = spatial_eq_config(mt, name)
+        batch = train.as_batch(make_random_batch(
+            SPATIAL_EQ_BATCH, hw, 4,
+            num_det_classes=len(cfg.dataset.instance_labels),
+            num_seg_classes=len(cfg.dataset.semantic_labels),
+            seed=int(rng.randint(1 << 30))), 'cpu')
+        witness = spatial_run(mt, cfg, batch, DEVICE)
+        decided = witness.pop('decided')
+        cases[name] = (cfg.to_dict(), batch, decided)
+        sound[name] = [witness]
+    laps['witness'] = time.perf_counter() - start
+    ports = iter(free_ports(len(SPATIAL_MESHES)))
+    collects = {shape: start_ranks(_spatial_eq_rank,
+                                   (DEVICE, shape, cases),
+                                   world=shape[0] * shape[1],
+                                   port=next(ports))
+                for shape in SPATIAL_MESHES}
+    for name, (cfg, batch, decided) in cases.items():
+        cfg = mt.ModelConfiguration().from_dict(cfg)
+        sound[name].append(spatial_run(mt, cfg, batch, 'cpu', decided))
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            sound[name].append(spatial_run(mt, cfg, batch, 'cpu', decided))
+        finally:
+            torch.set_num_threads(threads)
+        exact[name] = spatial_run(mt, cfg, batch, 'cpu', decided,
+                                  float64=True)
+    laps['cpu'] = time.perf_counter() - start
+    runs = {}
+    for shape, collect in collects.items():
+        runs[shape] = collect()
+        laps[f'{shape[0]}x{shape[1]}'] = time.perf_counter() - start
+
+    def values(run, heads=None):
+        return dict(run['step'], **{f'heads:{k}': v for k, v in
+                                   (heads or run['heads']).items()})
+    out = dict(meshes={}, laps=laps)
+    for shape in SPATIAL_MESHES:
+        label = f'{shape[0]}x{shape[1]}'
+        for name in cases:
+            mesh = [x[name] for x in runs[shape]]
+            if len({x['digest'] for x in mesh}) != 1:
+                raise AssertionError(f'spatial {label} {name}: the ranks '
+                                     'differ')
+            got = values(mesh[0], _mesh_heads(mesh, shape))
+            want = values(exact[name])
+            runs_32 = [values(x) for x in sound[name]]
+            step = {}
+            for k, w in want.items():
+                err = (got[k] - w).abs().max().item()
+                yard = max((r[k] - w).abs().max().item() for r in runs_32)
+                limit = (TRAIN_REF_RATIO * yard + TRAIN_REF_FLOOR
+                         * w.abs().max().item()
+                         + sound[name][0]['slack'].get(k, 0.0))
+                step[k] = err / max(limit, 1e-30)
+            readings = _reading_summary(step)
+            bad = {g: v for g, v in readings.items() if not v['max'] <= 1.0}
+            if bad:
+                raise AssertionError(f'spatial {label} {name}: the card '
+                                     f'outside its bound {bad}')
+            out['meshes'][f'{label} {name}'] = dict(
+                worst={g: v['max'] for g, v in readings.items()},
+                held=mesh[0]['held'],
+                loss=sound[name][0]['step']['loss:loss'].item())
+    out['seconds'] = time.perf_counter() - start
+    return out
+
+
+@contextlib.contextmanager
+def recorded_k2_rows():
+    """Within the block, every call of K2 by the NMS candidate pool records
+    its (scores shape, cap)."""
+    from masklab_tpu_torch.ops import nms
+    seen, wrapper = [], nms.segment_topk_rows
+
+    def record(scores, cap, *args, **kwargs):
+        seen.append((tuple(scores.shape), int(cap)))
+        return wrapper(scores, cap, *args, **kwargs)
+    nms.segment_topk_rows = record
+    try:
+        yield seen
+    finally:
+        nms.segment_topk_rows = wrapper
+
+
+def k2_at_rows(kc, shape, cap, seed=14) -> dict:
+    """K2 at a path's [B, C, n] call (the transpose of [B, n, C] scores),
+    exact against its plain version; cold device ms beside its bound."""
+    b, c, n = shape
+    scores = k2_scores(np.random.RandomState(seed), b, c, n)
+    got = kc.segment_topk_rows(scores, cap)
+    want = kc.segment_topk_rows_plain(scores, cap)
+    if not all(torch.equal(g, v) for g, v in zip(got, want)):
+        raise AssertionError(f'segment_topk differs from plain at {shape}, '
+                             f'cap {cap}')
+    flush, s = l2_flush(), -(-n // 128)
+    return dict(shape=list(shape), cap=cap, exact=True,
+                device_ms=device_ms(lambda: (flush(), kc.segment_topk_rows(
+                    scores, cap)), 100, 'segment_topk'),
+                bound_ms=bound_ms(b * c * n * 4 + 2 * b * c * cap * s * 4,
+                                  b * c * n)[0])
+
+
+def _spatial_fullwidth_rank(r, world, port, model_axis=2, spread=False):
+    """One rank of the full-width run on card 0 (``spread``: card r): the
+    road preset on a (world / model_axis) x model_axis mesh, the global
+    batch SPATIAL_BATCH a data row: one forward (its launches), then
+    PARALLEL_WARMUP steps (the first recording K1's and K2's maps, the
+    second K1's backward's), SPATIAL_STEPS counted ones (host ms between
+    synchronizations, launches from 0 before each, the losses), the peak
+    memory above what the process held before the model was built, one
+    traced step (the collectives' spans: count and host ms),
+    the parameters' digest."""
+    import hashlib
+    import masklab_tpu_torch as mt
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from masklab_tpu_torch import parallel, train
+    from masklab_tpu_torch.data import make_random_batch
+    from masklab_tpu_torch.ops import cuda as kc
+    dev = _joined(r, world, port, f'{DEVICE}:{r if spread else 0}'
+                  if DEVICE == 'cuda' else DEVICE)
+    try:
+        mesh = parallel.make_mesh(world // model_axis, model_axis,
+                                  devices=[dev] * world)
+        cfg = parallel_road_config(mt)
+        base = torch.cuda.memory_allocated(dev)
+        model = mt.build_masklab(cfg, device=dev, seed=0)
+        state = train.TrainState(model, train.rectified_adam(
+            train.cyclic_lr(1e-4, 1e-3, 700)),
+            box_beta=cfg.loss.box_loss_beta)
+        parallel.replicate_state(state, mesh)
+        whole = make_random_batch(
+            SPATIAL_BATCH * mesh.shape['data'], SPATIAL_HW, 3,
+            num_det_classes=len(cfg.dataset.instance_labels),
+            num_seg_classes=len(cfg.dataset.semantic_labels), seed=0)
+        layout = parallel.spatial_batch_sharding(whole, mesh)
+        batch = train.as_batch(parallel.spatial_shard_batch(whole, mesh),
+                               dev)
+        step = parallel.make_parallel_train_step(
+            model, mesh, with_metrics=False, seed=cfg.train.seed,
+            batch_shardings=layout)
+        model.eval()
+        torch.cuda.synchronize()
+        kc.reset_launch_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad(), parallel.sharded(model, mesh):
+            fwd = model(batch['images'])
+        torch.cuda.synchronize()
+        forward = dict(ms=(time.perf_counter() - t0) * 1e3,
+                       launches=kc.launch_counts(),
+                       finite=all(bool(torch.isfinite(v).all())
+                                  for v in fwd.values()))
+        with recorded_k1_maps() as k1_maps, recorded_k2_rows() as k2_rows:
+            state, _ = step(state, batch)
+        k1b_maps = k1_backward_shapes(step, state, batch)
+        for _ in range(PARALLEL_WARMUP - 2):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, counts, losses = [], [], []
+        for _ in range(SPATIAL_STEPS):
+            kc.reset_launch_counts()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            counts.append(kc.launch_counts())
+            losses.append(metrics['loss'].item())
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        warm_profiler()
+        dist.barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        cuda = torch.autograd.DeviceType.CUDA
+        host = [e for e in prof.events() if e.device_type != cuda]
+        spans = {name: [(e.time_range.end - e.time_range.start) / 1e3
+                        for e in host if e.name == name]
+                 for name in SPATIAL_SPANS}
+        digest = hashlib.sha256()
+        for k, v in list(state.model.state_dict().items()) + [
+                (f'box{j}', t) for j, t in enumerate(state.box_loss_state)]:
+            digest.update(k.encode())
+            digest.update(v.detach().cpu().contiguous().view(
+                torch.uint8).numpy().tobytes())
+        return dict(forward=forward, step_ms=times, launches_per_step=counts,
+                    losses=losses, peak_memory_bytes=peak,
+                    traced_ms=traced_ms,
+                    collectives={k[11:]: len(v) for k, v in spans.items()},
+                    collective_ms={k[11:]: sum(v) for k, v in spans.items()},
+                    k1_maps=k1_maps, k1_backward_maps=k1b_maps,
+                    k2_rows=k2_rows, backend=dist.get_backend(),
+                    rows=tuple(batch['images'].shape),
+                    digest=digest.hexdigest())
+    finally:
+        dist.destroy_process_group()
+
+
+def spatial_one_process(mt) -> dict:
+    """The full-width run's step in one process on the card at the same
+    global batch: ms a step (median of SPATIAL_STEPS after a warm-up) and
+    the peak memory above what the process held before the model was built
+    (the earlier phases' leftovers out, as a rank holds none)."""
+    from masklab_tpu_torch import train
+    from masklab_tpu_torch.data import make_random_batch
+    cfg = parallel_road_config(mt)
+    base = torch.cuda.memory_allocated(DEVICE)
+    model = mt.build_masklab(cfg, device=DEVICE, seed=0)
+    state = train.TrainState(model, train.rectified_adam(
+        train.cyclic_lr(1e-4, 1e-3, 700)), box_beta=cfg.loss.box_loss_beta)
+    batch = train.as_batch(make_random_batch(
+        SPATIAL_BATCH, SPATIAL_HW, 3,
+        num_det_classes=len(cfg.dataset.instance_labels),
+        num_seg_classes=len(cfg.dataset.semantic_labels), seed=0), DEVICE)
+    step = train.make_train_step(model, with_metrics=False,
+                                 seed=cfg.train.seed)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(SPATIAL_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = dict(ms_per_step=statistics.median(times), step_ms=times,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(DEVICE)
+               - base, loss=metrics['loss'].item())
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_spatial_fullwidth(kc, ranks: list, world: int, model_axis: int,
+                            label: str) -> dict:
+    """The full-width ranks' results held: the forward finite with K1, K2
+    and K3 launched; every counted step's loss finite with K1, K1's
+    backward, K2 and K3 launched on each rank; every rank's parameters,
+    statistics and box state and its losses equal bit for bit."""
+    for r, res in enumerate(ranks):
+        fwd = res['forward']
+        if not fwd['finite']:
+            raise AssertionError(f'spatial {label} rank {r}: a forward '
+                                 'output is not finite')
+        for name in ('band_groupnorm', 'segment_topk', 'nms_keep'):
+            if fwd['launches'][name] == 0:
+                raise AssertionError(f'spatial {label} rank {r}: {name} not '
+                                     'launched in the forward')
+        if not all(np.isfinite(res['losses'])):
+            raise AssertionError(f'spatial {label} rank {r}: losses '
+                                 f'{res["losses"]}')
+        for i, c in enumerate(res['launches_per_step']):
+            for name in TRAINER_KERNELS:
+                if c[name] == 0:
+                    raise AssertionError(f'spatial {label} rank {r} step '
+                                         f'{i}: {name} not launched')
+    if len({res['digest'] for res in ranks}) != 1:
+        raise AssertionError(f'spatial {label}: the ranks\' parameters '
+                             'differ after the last step')
+    if any(res['losses'] != ranks[0]['losses'] for res in ranks):
+        raise AssertionError(f'spatial {label}: the ranks report other '
+                             'losses')
+    mesh_ms = [max(ts) for ts in zip(*(res['step_ms'] for res in ranks))]
+    images = SPATIAL_BATCH * world // model_axis
+    share = [sum(res['collective_ms'].values()) / res['traced_ms']
+             for res in ranks]
+    return dict(
+        config=f'road seresnet34 bf16 full width, {SPATIAL_HW[0]}x'
+               f'{SPATIAL_HW[1]}, global batch {images}, mesh {label}',
+        rows=[res['rows'] for res in ranks],
+        ms_per_step=statistics.median(mesh_ms), step_ms=mesh_ms,
+        img_per_s=images * len(mesh_ms) / (sum(mesh_ms) / 1e3),
+        forward_ms=[res['forward']['ms'] for res in ranks],
+        peak_memory_bytes=[res['peak_memory_bytes'] for res in ranks],
+        collectives=ranks[0]['collectives'],
+        collective_ms=[res['collective_ms'] for res in ranks],
+        collective_share=share, traced_ms=[res['traced_ms']
+                                           for res in ranks],
+        losses=ranks[0]['losses'], backend=ranks[0]['backend'],
+        launches_per_step=[res['launches_per_step'] for res in ranks],
+        launches={k: sum(c[k] for res in ranks
+                         for c in res['launches_per_step'])
+                  for k in ranks[0]['launches_per_step'][0]},
+        forward_launches=[res['forward']['launches'] for res in ranks])
+
+
+def spatial_kernels_at_path(kc, rng, ranks: list) -> dict:
+    """K2 exact at each [B, C, n] call the path gave it, K1 and K1's
+    backward held at every map it gave them (``k1_at_maps``,
+    ``k1_backward_at``)."""
+    k2 = [k2_at_rows(kc, shape, cap) for shape, cap in
+          sorted({row for res in ranks for row in res['k2_rows']})]
+    maps = [m for res in ranks for m in res['k1_maps']]
+    bmaps = [m for res in ranks for m in res['k1_backward_maps']]
+    return dict(k2=k2, k1=k1_at_maps(kc, rng, maps),
+                k1_backward=k1_backward_at(kc, rng, bmaps),
+                k1_maps=sorted({tuple(str(v) for v in m) for m in maps}),
+                k1_backward_maps=sorted({tuple(m) for m in bmaps}))
+
+
+def run_spatial(mt, kc) -> dict:
+    """Phase 14, its lines printed: the narrow checks, the full-width run on
+    1 x 2 gloo ranks beside one process, the kernels at the path's maps;
+    its inputs from a generator of its own."""
+    rng = np.random.RandomState(14)
+    out = dict(equivalence=check_spatial_equivalence(mt, rng))
+    eq = out['equivalence']
+    print(f'spatial equivalence: the card\'s meshes within '
+          f'{TRAIN_REF_RATIO:g}x the distance of sound float32 runs of one '
+          f'process from a float64 step (worst reading by group), ranks '
+          f'bitwise equal: {json.dumps(eq["meshes"])}; {eq["seconds"]:.1f} '
+          f's', flush=True)
+    start = time.perf_counter()
+    ranks = spawn_ranks(_spatial_fullwidth_rank, (), world=2)
+    out['fullwidth'] = fw = check_spatial_fullwidth(kc, ranks, 2, 2, '1x2')
+    fw['one_process'] = one = spatial_one_process(mt)
+    out['kernels'] = ks = spatial_kernels_at_path(kc, rng, ranks)
+    fw['seconds'] = time.perf_counter() - start
+    print(f'spatial: {fw["config"]}, backend {fw["backend"]}, rank rows '
+          f'{fw["rows"]}: {fw["ms_per_step"]:.2f} ms a step (steps '
+          f'{[round(t, 2) for t in fw["step_ms"]]}), {fw["img_per_s"]:.3f} '
+          f'img/s; one process at the same batch {one["ms_per_step"]:.2f} '
+          f'ms; peak memory above the model\'s start '
+          f'{[round(b / 2**30, 3) for b in fw["peak_memory_bytes"]]} GiB a '
+          f'rank vs {one["peak_memory_bytes"] / 2**30:.3f} GiB one process;'
+          f' a traced step\'s collectives {json.dumps(fw["collectives"])}'
+          f' (host ms {json.dumps(fw["collective_ms"][0])}), share '
+          f'{[round(s, 3) for s in fw["collective_share"]]} of '
+          f'{[round(t, 2) for t in fw["traced_ms"]]} ms; forward '
+          f'{[round(t, 2) for t in fw["forward_ms"]]} ms, launches '
+          f'{json.dumps(fw["forward_launches"][0])}; losses '
+          f'{json.dumps(fw["losses"])}, launches per step '
+          f'{json.dumps(fw["launches_per_step"][0][-1])} on each rank, '
+          f'ranks bitwise equal; {fw["seconds"]:.1f} s', flush=True)
+    print(f'spatial kernels: K2 {json.dumps(ks["k2"])}; K1 at '
+          f'{len(ks["k1"])} cases of maps {json.dumps(ks["k1_maps"])}; K1 '
+          f'backward at {json.dumps([[c["shape"], c["groups"], c["dtype"], c["relu"], c["dx_err"]] for c in ks["k1_backward"]])}',
+          flush=True)
+    return out
+
+
+def run_spatial_multi_card(mt, kc, n: int) -> dict:
+    """--multi-card's spatial run: 2 x 2 over four NCCL ranks, one a card,
+    at the full-width configuration and a global batch of 4."""
+    if n < 4:
+        raise AssertionError(f'the 2 x 2 spatial mesh needs four cards, '
+                             f'has {n}')
+    ranks = spawn_ranks(_spatial_fullwidth_rank, (2, True), world=4)
+    if {res['backend'] for res in ranks} != {'nccl'}:
+        raise AssertionError('spatial 2x2: not over NCCL')
+    out = check_spatial_fullwidth(kc, ranks, 4, 2, '2x2 NCCL')
+    print(f'spatial multi-card: {out["config"]}: {out["ms_per_step"]:.2f} '
+          f'ms a step, {out["img_per_s"]:.3f} img/s, peak memory '
+          f'{[round(b / 2**30, 3) for b in out["peak_memory_bytes"]]} GiB, '
+          f'collectives {json.dumps(out["collectives"])} share '
+          f'{[round(s, 3) for s in out["collective_share"]]}, losses '
+          f'{json.dumps(out["losses"])}', flush=True)
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--kernels-only', action='store_true',
@@ -3844,10 +4441,15 @@ def main() -> int:
     parser.add_argument('--acceptance-only', action='store_true',
                         help='card, build and phase 13 (the learning gates, '
                         'examples/torch/06 and 07) only')
+    parser.add_argument('--spatial-only', action='store_true',
+                        help='card, build and phase 14 (the dp x sp spatial '
+                        'sharding) only; with --multi-card, card, build '
+                        'and its 2 x 2 NCCL run only')
     parser.add_argument('--multi-card', action='store_true',
                         help='card, build, and data parallelism over every '
                         'card present (two at least): NCCL ranks, the CLI '
-                        'trainer, the serving mesh')
+                        'trainer, the serving mesh, the 2 x 2 spatial mesh '
+                        '(four cards)')
     parser.add_argument('--reference-draws', type=int, default=0,
                         metavar='N', help='card, build and '
                         'check_train_reference at the batch seeds of '
@@ -3894,6 +4496,13 @@ def main() -> int:
         return 0
     if args.acceptance_only:
         finish(card, {'acceptance': run_acceptance(kc)})
+        return 0
+    if args.spatial_only and args.multi_card:
+        finish(card, {'multi_card': {'spatial': run_spatial_multi_card(
+            mt, kc, torch.cuda.device_count())}})
+        return 0
+    if args.spatial_only:
+        finish(card, {'spatial': run_spatial(mt, kc)})
         return 0
     if args.multi_card:
         finish(card, {'multi_card': run_multi_card(mt)})
@@ -3964,13 +4573,14 @@ def main() -> int:
     fused_head = run_fused(mt, kc, serve, trained)
     deployed = run_deployment(mt, kc)
     parallel = run_parallel(mt, kc)
+    spatial_out = run_spatial(mt, kc)
     trainer = run_trainer(mt, kc, rng)
     acceptance = run_acceptance(kc)
     paths = dict(serve, train=trained, trainer=dict(
         launches={k: sum(c[k] for c in trainer['launches_per_step'])
                   for k in TRAINER_KERNELS}),
         deployment=deployed['deployment'], separable=deployed['separable'],
-        parallel=parallel['fullwidth'],
+        parallel=parallel['fullwidth'], spatial=spatial_out['fullwidth'],
         **{'serving mesh': parallel['serving_mesh']}, **fused_head['serve'],
         **{'fused train': fused_head['train']},
         **{f'acceptance {g}': a for g, a in acceptance.items()
@@ -3989,7 +4599,8 @@ def main() -> int:
     print(f'total: {time.perf_counter() - STARTED:.1f} s', flush=True)
     finish(card, {'kernels': kernels, 'serve': serve, 'train': trained,
                   'trainer': trainer, 'reference': reference, **deployed,
-                  'parallel': parallel, 'fused': fused_head,
+                  'parallel': parallel, 'spatial': spatial_out,
+                  'fused': fused_head,
                   'acceptance': acceptance, **more})
     return 0
 

@@ -223,7 +223,8 @@ class ComputeConfig:
     # trainer clamps mesh_data to the cards present, as the reference
     # clamps it to its devices, and trains one rank a card
     # (train/trainer.py); mesh_model is ignored, as the reference's trainer
-    # ignores it.
+    # ignores it (the dp x sp sharding is a library form:
+    # parallel.spatial_batch_sharding and the steps' batch_shardings=).
     mesh_data: int = 1
     mesh_model: int = 1
     remat_backbone: bool = False

@@ -12,6 +12,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from .nn import spatial
 from .nn.sync import all_reduce_sum
 
 EPS = 1e-7
@@ -123,7 +124,9 @@ def mask_loss(mask_true, mask_pred, weight=1.0, label_smoothing=0.0):
 
 
 def seg_loss(seg_true, seg_pred, seg_exists, weight=1.0, label_smoothing=0.0):
-    """Per-class BCE gated by the seg-exists flags -> [B]."""
+    """Per-class BCE gated by the seg-exists flags -> [B]. Sharded
+    (``nn.spatial``), the pixel mean is over the frame's rows."""
     loss = binary_cross_entropy(seg_true, seg_pred, label_smoothing)
-    loss = loss.mean((1, 2)) * seg_exists.float()                  # [B, C]
+    loss = spatial.mean_hw(loss, 'seg_loss', (1, 2)) \
+        * seg_exists.float()                                       # [B, C]
     return weight * loss.mean(1)

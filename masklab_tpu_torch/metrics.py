@@ -10,6 +10,7 @@ from typing import Tuple
 
 import torch
 
+from .nn import spatial
 from .ops.boxes import pairwise_iou
 
 EPS = 1e-7
@@ -40,11 +41,12 @@ def confusion_matrix_metric(cls_true, cls_pred, mask, threshold=0.3):
 
 
 def class_binary_iou(seg_true, seg_pred, threshold=0.5):
-    """Per-class binary IoU -> [B, C] (1.0 where the union is empty)."""
+    """Per-class binary IoU -> [B, C] (1.0 where the union is empty); the
+    pixel counts over the frame's rows when sharded (``nn.spatial``)."""
     t = (seg_true > threshold).float()
     p = (seg_pred > threshold).float()
-    inter = (t * p).sum((1, 2))
-    union = t.sum((1, 2)) + p.sum((1, 2)) - inter
+    inter, t_sum, p_sum = spatial.sum_hw(torch.stack([t * p, t, p]), (2, 3))
+    union = t_sum + p_sum - inter
     return torch.where(union > 0, inter / union, torch.ones_like(union))
 
 

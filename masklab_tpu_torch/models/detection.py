@@ -4,7 +4,9 @@ training targets of each anchor.
 Port of ``masklab_tpu/models/detection.py:30-186``. Heads take the NCHW
 feature list in ascending-stride order and return rows in the reference's
 [B, sum(H*W*A), C] order (row-major over y, x, anchor; levels concatenated),
-so row i lines up with prior i.
+so row i lines up with prior i. Sharded (``nn.spatial``), each level's
+output map is gathered whole on every rank before its rows are listed, so
+the order is one process's.
 """
 from __future__ import annotations
 
@@ -13,9 +15,9 @@ from typing import List, Sequence, Tuple
 import torch
 from torch import nn
 
+from ..nn import spatial
 from ..nn.layers import HeadBlock, conv2d, same_conv
 from ..ops.boxes import encode_boxes, pairwise_iou
-from ..ops.resize import resize_spatial
 
 
 class FeaturePyramid(nn.Module):
@@ -38,9 +40,8 @@ class FeaturePyramid(nn.Module):
         for idx, head in enumerate(inputs[::-1]):
             lateral = getattr(self, f'lateral_{idx}')(head)
             if prev is not None:
-                lateral = lateral + resize_spatial(
-                    prev, lateral.shape[-2], lateral.shape[-1],
-                    align_corners=True, channels_last=False)
+                lateral = lateral + spatial.resize_like(
+                    prev, lateral, (self, idx), align_corners=True)
             prev = lateral
             outputs.append(getattr(self, f'output_{idx}')(lateral))
         return outputs[::-1]
@@ -82,7 +83,8 @@ class ClassificationSubNet(nn.Module):
         for idx, head in enumerate(inputs):
             x = getattr(self, f'block_{idx}')(head)
             x = torch.sigmoid(getattr(self, f'output_{idx}')(x))
-            heads.append(_rows(x, self.num_classes))
+            heads.append(_rows(spatial.gather(x, (self, idx)),
+                               self.num_classes))
         return torch.cat(heads, dim=1)
 
 
@@ -114,7 +116,8 @@ class BoxRegressionSubNet(nn.Module):
         heads = []
         for idx, head in enumerate(inputs):
             x = getattr(self, f'block_{idx}')(head)
-            heads.append(_rows(getattr(self, f'output_{idx}')(x), 4))
+            heads.append(_rows(spatial.gather(
+                getattr(self, f'output_{idx}')(x), (self, idx)), 4))
         return torch.cat(heads, dim=1)
 
 

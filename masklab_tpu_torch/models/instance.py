@@ -9,7 +9,10 @@ The reference's capacity ladder (static bucket sizes under ``lax.switch``)
 and its one-hot scatter matmul are TPU forms. Here each level's head runs
 on exactly the boxes routed to it and the masks are written back by index;
 the values equal the reference's ``select_by_level`` of every level's
-masks.
+masks. Sharded (``nn.spatial``), each rank crops its rows' share of every
+RoI and the shares are summed over the ranks: the heads then run on whole
+crops, the same on every rank (``spatial.replicated``); so do the mask
+targets of the rows' share of each gt mask.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..nn import spatial
 from ..nn.layers import HeadBlock, conv2d
 from ..ops.boxes import cxcywh_to_yxyx, pairwise_iou
 from ..ops.roi_align import batched_crop_and_resize, crop_and_resize_indexed
@@ -142,12 +146,14 @@ def routed_heads(features: Sequence[torch.Tensor], boxes: torch.Tensor,
         slot = order[live]
         sel = order.to(boxes.device)
         sel_boxes = torch.gather(norm, 1, sel[..., None].expand(-1, -1, 4))
-        crops = batched_crop_and_resize(fmap.permute(0, 2, 3, 1),
-                                        sel_boxes, crop_size)
+        crops = spatial.reduce_crops(batched_crop_and_resize(
+            fmap.permute(0, 2, 3, 1), sel_boxes, crop_size,
+            spatial.crop_rows(('mask level', idx), fmap.shape[-2])))
         crops = crops[live.to(boxes.device)]                      # [n, ch, cw, C]
         head_in = crops.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        y = head(idx, head_in)                                    # [n, cls, 2ch, 2cw]
+        with spatial.replicated():
+            y = head(idx, head_in)                                # [n, cls, 2ch, 2cw]
         out[img.to(boxes.device), slot.to(boxes.device)] = (
             y.permute(0, 2, 3, 1).float())
     return out
@@ -165,7 +171,8 @@ def assign_masks(roi_boxes: torch.Tensor, gt_boxes: torch.Tensor,
     class where the crop > 0.5 and ``num_classes`` elsewhere, or everywhere
     when the best IoU is below ``match_iou_threshold``.
     """
-    image_hw = gt_masks.shape[2:4]
+    image_hw = (spatial.frame_rows(gt_masks.shape[2]), gt_masks.shape[3])
+    rows = spatial.crop_rows(None, gt_masks.shape[2])
     out = []
     for rois, gts, masks in zip(roi_boxes.float(), gt_boxes.float(),
                                 gt_masks):
@@ -177,8 +184,8 @@ def assign_masks(roi_boxes: torch.Tensor, gt_boxes: torch.Tensor,
         matched = iou.amax(0) >= match_iou_threshold             # [R]
         gt_idx = iou.argmax(0)                                     # [R]
         norm = cxcywh_to_yxyx(rois[:, :4], image_hw)
-        crops = crop_and_resize_indexed(masks[..., None].float(), norm,
-                                        gt_idx, mask_hw)[..., 0]
+        crops = spatial.reduce_crops(crop_and_resize_indexed(
+            masks[..., None].float(), norm, gt_idx, mask_hw, rows))[..., 0]
         cls = torch.where(matched, gts[gt_idx, 4], float(num_classes))
         out.append(torch.where(crops > 0.5, cls[:, None, None],
                                float(num_classes)).to(torch.int32))

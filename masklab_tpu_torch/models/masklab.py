@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfiguration
 from ..device import resolve_device
+from ..nn import spatial
 from ..nn.backbone import BackboneNetwork, backbone_channels, grid_padding
 from ..nn.layers import frozen_batch_stats
 from ..ops.boxes import decode_boxes
@@ -143,15 +144,18 @@ class MaskLab(nn.Module):
             # reference's nn.remat); the recomputation must not update the
             # BatchNorm statistics a second time, and must draw the same
             # drop-connect masks: each pass draws from a copy of the
-            # generator's state
+            # generator's state; and it must run sharded as the forward did,
+            # in whatever thread the backward runs (nn.spatial)
             state = None if generator is None else generator.get_state()
+            sharding = spatial.active()
 
             def backbone(x):
-                if state is None:
-                    return self.backbone(x)
-                g = torch.Generator(device=generator.device)
-                g.set_state(state)
-                return self.backbone(x, g)
+                with spatial.in_effect(sharding):
+                    if state is None:
+                        return self.backbone(x)
+                    g = torch.Generator(device=generator.device)
+                    g.set_state(state)
+                    return self.backbone(x, g)
             endpoints = checkpoint(
                 backbone, images, use_reentrant=False,
                 context_fn=lambda: (contextlib.nullcontext(),
@@ -166,7 +170,7 @@ class MaskLab(nn.Module):
         seg = self.seg_subnet(aspp_out,
                               endpoints[cfg.semantic.skip_input_name])
         seg_pred = seg.permute(0, 2, 3, 1).float()
-        h, w = images.shape[1], images.shape[2]
+        h, w = spatial.frame_rows(images.shape[1]), images.shape[2]
         return dict(cls_pred=cls_pred, loc_pred=loc_pred, features=features,
                     seg_pred=seg_pred, priors=self._priors(h, w,
                                                            images.device),

@@ -4,7 +4,9 @@ Port of ``masklab_tpu/models/semantic.py:23-90``: a 1x1 branch, one
 atrous-separable branch per rate, an image-pooling branch resized back with
 align_corners, a 1x1 projection; the decoder concatenates the upsampled
 ASPP output with a 1x1 skip projection and ends in a 1x1 sigmoid output.
-``assign_seg`` resizes the gt map to the prediction's size.
+``assign_seg`` resizes the gt map to the prediction's size. Sharded
+(``nn.spatial``), the pooling branch's mean is a sum over the ranks, and
+the resizes take each rank's output rows.
 """
 from __future__ import annotations
 
@@ -13,8 +15,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from ..nn import spatial
 from ..nn.layers import AtrousSeparableConv, GroupNorm, HeadBlock, conv2d
-from ..ops.resize import resize_bilinear, resize_spatial
+from ..ops.resize import resize_spatial
 
 
 class ASPPNetwork(nn.Module):
@@ -41,7 +44,10 @@ class ASPPNetwork(nn.Module):
         branches = [torch.relu(self.GroupNorm_0(self.aspp_1x1(x)))]
         for rate in self.atrous_rate:
             branches.append(getattr(self, f'aspp_{rate}')(x))
-        pool = torch.relu(self.aspp_pool(x.mean((-2, -1), keepdim=True)))
+        pool = torch.relu(self.aspp_pool(spatial.mean_hw(x, self,
+                                                         keepdim=True)))
+        # from one row, every output row is that row: this rank's rows
+        # resize locally
         branches.append(resize_spatial(pool, x.shape[-2], x.shape[-1],
                                        align_corners=True,
                                        channels_last=False))
@@ -71,8 +77,7 @@ class SegmentationSubNet(nn.Module):
 
     def forward(self, dec_input, skip_input):
         skip = torch.relu(self.GroupNorm_0(self.skip_projection(skip_input)))
-        up = resize_spatial(dec_input, skip.shape[-2], skip.shape[-1],
-                            align_corners=True, channels_last=False)
+        up = spatial.resize_like(dec_input, skip, self, align_corners=True)
         x = self.HeadBlock_0(torch.cat([up, skip], dim=1))
         return torch.sigmoid(self.seg_output(x))
 
@@ -80,6 +85,6 @@ class SegmentationSubNet(nn.Module):
 def assign_seg(gt_seg: torch.Tensor, seg_pred: torch.Tensor) -> torch.Tensor:
     """Resize gt seg [B, H, W, C] to the prediction's [B, h, w, C]
     (align-corners bilinear) and round half to even."""
-    return torch.round(resize_bilinear(gt_seg.float(), seg_pred.shape[-3],
-                                       seg_pred.shape[-2],
-                                       align_corners=True))
+    return torch.round(spatial.resize_like(gt_seg.float(), seg_pred,
+                                           'assign_seg', align_corners=True,
+                                           channels_last=True))

@@ -17,6 +17,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from .. import spatial
 from ..layers import GroupNorm, conv2d, pad_same_s2, pad_valid_s2
 from . import efficientnet, mobilenet, mobilenetv2, resnet, vgg
 from .preprocess import PREPROCESS_COMBOS, preprocess_for
@@ -80,7 +81,9 @@ class BackboneNetwork(nn.Module):
     ``backbone_outputs``. P6 is the relu'd stride-2 3x3 conv of the last C
     endpoint (before any norm); P7 convolves GroupNorm(32) of P6.
     Mobilenet's extras zero-pad (0, 1) and convolve VALID; the others pad
-    as XLA's 'SAME' does, which depends on each map's parity."""
+    as XLA's 'SAME' does, which depends on each map's parity. Sharded
+    (``nn.spatial``), the images are this rank's rows of each frame: the
+    forward first learns the frame's rows."""
 
     def __init__(self, backbone_type: str = 'mobilenet',
                  backbone_outputs: Sequence[str] = ('C3', 'C4', 'C5', 'P6',
@@ -111,18 +114,23 @@ class BackboneNetwork(nn.Module):
             self.extras_P7_conv = conv2d(num_features, num_features, 3,
                                          stride=2, dtype=dtype)
 
-    @staticmethod
-    def _check_nonempty(level_name, t):
-        if t.shape[-2] == 0 or t.shape[-1] == 0:
+    def _check_nonempty(self, level_name, t):
+        sp = spatial.active()
+        rows = (t.shape[-2] if sp is None
+                else sp.rows((self, level_name), t.shape[-2]))
+        if rows == 0 or t.shape[-1] == 0:
             raise ValueError(
                 f'input too small: extras level {level_name} came out '
-                f'{t.shape[-2]}x{t.shape[-1]}; use a larger input or drop '
+                f'{rows}x{t.shape[-1]}; use a larger input or drop '
                 'P6/P7 from backbone_outputs')
 
     def forward(self, images: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
         """``generator`` draws a body's random layers in train mode (each
         body takes it; those with no random layer ignore it)."""
+        sp = spatial.active()
+        if sp is not None:
+            sp.start(images.shape[1])
         x = preprocess_for(self.backbone_type, images)
         x = x.permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)

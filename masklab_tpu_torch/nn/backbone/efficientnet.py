@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import spatial
 from ..layers import BatchNorm, conv2d, pad_same_s2
 
 # (expand_ratio, channels, repeats, stride, kernel)
@@ -131,7 +132,7 @@ class _MBConv(nn.Module):
         if self.stride == 2:
             x = pad_same_s2(x, self.kernel)
         x = F.silu(getattr(self, f'_BN_{b}')(getattr(self, f'Conv_{c}')(x)))
-        se = x.mean((-2, -1), keepdim=True)
+        se = spatial.mean_hw(x, self, keepdim=True)
         se = F.silu(getattr(self, f'Conv_{c + 1}')(se))
         x = x * torch.sigmoid(getattr(self, f'Conv_{c + 2}')(se))
         x = getattr(self, f'_BN_{b + 1}')(getattr(self, f'Conv_{c + 3}')(x))

@@ -39,10 +39,10 @@ here.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..layers import BatchNorm, Linear, conv2d
+from .. import spatial
+from ..layers import BatchNorm, Linear, conv2d, max_pool
 
 CHANNELS = {'C1': 64, 'C2': 64, 'C3': 128, 'C4': 256, 'C5': 512}
 STAGE_BLOCKS = (3, 4, 6, 3)   # basic blocks per stage of resnet34
@@ -74,7 +74,8 @@ class _SE(nn.Module):
         self.fc2 = Linear(hidden, channels, compute_dtype=dtype)
 
     def forward(self, x):
-        se = torch.sigmoid(self.fc2(torch.relu(self.fc1(x.mean((-2, -1))))))
+        se = torch.sigmoid(self.fc2(torch.relu(self.fc1(
+            spatial.mean_hw(x, self)))))
         return x * se[:, :, None, None]
 
 
@@ -130,7 +131,7 @@ class CMResNet(nn.Module):
         x = self.conv0(self.bn_data(x).to(self.dtype))
         x = torch.relu(self.bn0(x))
         endpoints['C1'] = x
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = max_pool(x, 3, 2, 1, site=self)
         for si, blocks in enumerate(STAGE_BLOCKS):
             for bi in range(blocks):
                 x, preact = getattr(self, f'stage{si + 1}_unit{bi + 1}')(x)
@@ -243,7 +244,7 @@ class ResNet(nn.Module):
         endpoints = {}
         x = torch.relu(self.stem_bn(self.stem(x.to(self.dtype))))
         endpoints['C1'] = x
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
+        x = max_pool(x, 3, 2, 1, site=self)
         for si in range(self.stages):
             x, relu1 = getattr(self, f'stage{si + 2}')(x)
             if self.inner_taps and si >= 1:
@@ -311,7 +312,9 @@ class V2Block(nn.Module):
         if hasattr(self, 'conv0'):
             shortcut = self.conv0(pre)
         elif self.stride > 1:
-            shortcut = x[:, :, ::self.stride, ::self.stride]
+            sp = spatial.active()
+            shortcut = (x[:, :, ::self.stride, ::self.stride] if sp is None
+                        else spatial.subsample_rows(sp, self, x, self.stride))
         else:
             shortcut = x
         y = torch.relu(self.bn1(self.conv1(pre)))
@@ -350,7 +353,7 @@ class ResNetV2(nn.Module):
         endpoints = {}
         x = self.stem(x.to(self.dtype))
         endpoints['C1'] = x
-        x = F.max_pool2d(F.pad(x, (1, 1, 1, 1)), 3, stride=2)
+        x = max_pool(x, 3, 2, 1, site=self, zero_pad=True)
         for si, blocks in enumerate(self.stage_blocks):
             for bi in range(blocks):
                 x, taps = getattr(self, f'stage{si + 2}_block{bi + 1}')(x)

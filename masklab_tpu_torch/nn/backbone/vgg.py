@@ -8,10 +8,9 @@ last conv activations of blocks 2-5 (strides 2 to 16), C5 the last pool
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from ..layers import same_conv
+from ..layers import max_pool, same_conv
 
 # (convs, channels) per block
 _CFG = [(2, 64), (2, 128), (3, 256), (3, 512), (3, 512)]
@@ -41,6 +40,6 @@ class VGG16(nn.Module):
                 x = torch.relu(getattr(self, f'block{bi}_conv{ci + 1}')(x))
             if bi in _TAPS:
                 endpoints[_TAPS[bi]] = x
-            x = F.max_pool2d(x, 2, stride=2)
+            x = max_pool(x, 2, 2, site=(self, bi))
         endpoints['C5'] = x
         return endpoints

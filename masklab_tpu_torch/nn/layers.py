@@ -14,6 +14,13 @@ bf16 would; the predictor casts them once instead (``hold_compute_dtype``).
 ``BatchNorm`` normalizes with batch statistics in train mode
 (``model.train()``) and with its running statistics in eval mode.
 
+Within ``nn.spatial.spatially_sharded`` (the dp x sp step) each module
+runs on this rank's block of rows: ``Conv2d`` takes its halo rows (zeros
+only at the frame's top and bottom), the stride-2 pads follow the frame's
+parity, GroupNorm's bands and BatchNorm's and the squeeze-excite's means
+are sums over the ranks, and a GroupNorm map that is ragged for the whole
+frame goes whole to K1, as one process's does.
+
 ``SqueezeExcite`` gates the inputs of the heads' convs in the road preset;
 ``MobileSeparableConv`` makes up the separable heads
 (``use_separable_conv``). Not ported here: the space-to-depth ``StemConv``
@@ -22,12 +29,14 @@ bf16 would; the predictor casts them once instead (``hold_compute_dtype``).
 from __future__ import annotations
 
 import contextlib
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda import BandGroupNormFn
+from . import spatial
 from .sync import all_reduce_sum
 
 
@@ -38,16 +47,31 @@ def _cast(t, dtype):
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` with float32 parameters, computed in ``compute_dtype``
     (weight, bias and input cast inside the call, like flax's ``nn.Conv``
-    with ``dtype`` and ``param_dtype=float32``)."""
+    with ``dtype`` and ``param_dtype=float32``). Sharded, a conv with rows
+    to look at beyond its own (a k x k kernel, a row stride, row padding,
+    a stride-2 pad's ``spatial.RowPad``) runs ``spatial.conv_rows``."""
 
     def __init__(self, *args, compute_dtype=torch.float32, **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
+        pad_mode = None
+        if isinstance(x, spatial.RowPad):
+            x, pad_mode = x.tensor, x
         dt = self.compute_dtype
-        return self._conv_forward(x.to(dt), self.weight.to(dt),
-                                  _cast(self.bias, dt))
+        x, w, b = x.to(dt), self.weight.to(dt), _cast(self.bias, dt)
+        sp = spatial.active()
+        if sp is not None:
+            if (pad_mode is not None or self.kernel_size[0] > 1
+                    or self.stride[0] > 1 or self.padding[0]):
+                return spatial.conv_rows(sp, self, x, w, b, self.stride,
+                                         self.padding, self.dilation,
+                                         self.groups, pad_mode=pad_mode)
+            if x.shape[-2] == 0:
+                return spatial.empty_conv(
+                    lambda t: self._conv_forward(t, w, b), x)
+        return self._conv_forward(x, w, b)
 
 
 class Linear(nn.Linear):
@@ -96,7 +120,12 @@ def same_conv(in_ch: int, out_ch: int, kernel: int, bias: bool = True,
 
 
 def pad_valid_s2(x: torch.Tensor) -> torch.Tensor:
-    """Keras stride-2 padding: zero-pad bottom/right by one (NCHW)."""
+    """Keras stride-2 padding: zero-pad bottom/right by one (NCHW). Sharded,
+    the width is padded and the rows' (0, 1) is left to the conv: the
+    result, a ``spatial.RowPad``, must go straight to a ``Conv2d`` (only
+    the frame's last rank pads)."""
+    if spatial.active() is not None:
+        return spatial.RowPad(F.pad(x, (0, 1)), 'valid')
     return F.pad(x, (0, 1, 0, 1))
 
 
@@ -104,12 +133,27 @@ def pad_same_s2(x: torch.Tensor, kernel: int = 3) -> torch.Tensor:
     """XLA 'SAME' padding of a k x k stride-2 conv (NCHW): each spatial axis
     of size n gets ceil(n / 2) outputs and max((ceil(n / 2) - 1) * 2 + k -
     n, 0) zeros, the smaller half before. For k = 3: (0, 1) on an even axis
-    and (1, 1) on an odd one; for k = 5: (1, 2) and (2, 2)."""
-    pads = []
-    for n in (x.shape[-1], x.shape[-2]):
-        total = max((-(-n // 2) - 1) * 2 + kernel - n, 0)
-        pads += [total // 2, total - total // 2]
-    return F.pad(x, pads)
+    and (1, 1) on an odd one; for k = 5: (1, 2) and (2, 2)
+    (``spatial.same_pads``). Sharded, the width is padded and the rows'
+    pads, from the frame's parity, are left to the conv: the result, a
+    ``spatial.RowPad``, must go straight to a ``Conv2d``."""
+    cols = spatial.same_pads(x.shape[-1], kernel)
+    if spatial.active() is not None:
+        return spatial.RowPad(F.pad(x, cols), 'same', kernel)
+    return F.pad(x, cols + spatial.same_pads(x.shape[-2], kernel))
+
+
+def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0,
+             site=None, zero_pad: bool = False) -> torch.Tensor:
+    """``F.max_pool2d`` with ``padding`` (-inf, or zeros padded first with
+    ``zero_pad``); sharded, ``spatial.pool_rows`` at ``site``."""
+    sp = spatial.active()
+    if sp is not None:
+        return spatial.pool_rows(sp, site, x, kernel, stride, padding,
+                                 0.0 if zero_pad else -math.inf)
+    if zero_pad:
+        return F.max_pool2d(F.pad(x, (padding,) * 4), kernel, stride=stride)
+    return F.max_pool2d(x, kernel, stride=stride, padding=padding)
 
 
 class GroupNorm(nn.Module):
@@ -122,6 +166,11 @@ class GroupNorm(nn.Module):
     torch); ragged maps go through ``band_groupnorm`` (kernel K1 on the
     card, with K1's backward kernel as its gradient: ``BandGroupNormFn``).
     ``forward(x, fuse_relu=True)`` applies relu to the input first.
+    Sharded, the raggedness is the frame's map's: a band of a strip map
+    spans the ranks' blocks, its float32 sums are summed over the ranks;
+    a ragged map is gathered whole to K1 (as GSPMD runs a ``pallas_call``
+    it cannot partition) and each rank keeps its rows. The statistics are
+    float32, the reference's (float64 for a float64 map).
     """
 
     def __init__(self, channels: int, groups: int = 16):
@@ -134,24 +183,66 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, fuse_relu: bool = False):
+        sp = spatial.active()
+        if sp is None:
+            return self._whole(x, fuse_relu)
+        rows = sp.rows(self, x.shape[2])
+        if rows * x.shape[3] % self.groups:
+            a, e = sp.block(rows)
+            return self._whole(spatial.gather(x, self), fuse_relu)[:, :, a:e]
+        return self._strips(sp, x, rows, fuse_relu)
+
+    def _tables(self, c: int):
+        cg = c // self.groups
+        return (self.weight.reshape(self.groups, cg).repeat(1, c // cg),
+                self.bias.reshape(self.groups, cg).repeat(1, c // cg))
+
+    def _strips(self, sp, x: torch.Tensor, rows: int, fuse_relu: bool):
+        """This rank's rows of a strip map: its pixels padded with zeros to
+        whole bands, each band's sums over the ranks."""
         b, c, h, w = x.shape
-        groups, cg, spatial = self.groups, c // self.groups, h * w
+        groups = self.groups
+        per = rows * w // groups
+        a, e = sp.block(rows)
+        p0, p1 = a * w, e * w
+        g0, g1 = (p0 // per, -(-p1 // per)) if p1 > p0 else (0, 0)
+        front, back = p0 - g0 * per, g1 * per - p1
         nhwc = x.permute(0, 2, 3, 1)
-        if spatial % groups:
+        if fuse_relu:
+            nhwc = torch.relu(nhwc)
+        g = F.pad(nhwc.reshape(b, h * w, c), (0, 0, front, back)).reshape(
+            b, g1 - g0, per, c)
+        f32 = g.to(torch.promote_types(x.dtype, torch.float32))
+        sums = torch.stack([f32.sum((2, 3)), f32.square().sum((2, 3))], -1)
+        sums = all_reduce_sum(F.pad(sums, (0, 0, g0, groups - g1)),
+                              sp.sp.group)[:, g0:g1] / (per * c)
+        m1, m2 = sums[..., 0, None, None], sums[..., 1, None, None]
+        inv = torch.rsqrt(torch.clamp(m2 - m1 * m1, min=0.0) + 1e-5)
+        y = (g - m1.to(x.dtype)) * inv.to(x.dtype)
+        table_s, table_b = (t[g0:g1] for t in self._tables(c))
+        y = (y * table_s[None, :, None, :].to(x.dtype)
+             + table_b[None, :, None, :].to(x.dtype))
+        y = y.reshape(b, (g1 - g0) * per, c)[:, front:front + h * w]
+        return y.reshape(b, h, w, c).permute(0, 3, 1, 2)
+
+    def _whole(self, x: torch.Tensor, fuse_relu: bool):
+        b, c, h, w = x.shape
+        groups, spatial_size = self.groups, h * w
+        nhwc = x.permute(0, 2, 3, 1)
+        if spatial_size % groups:
             y = BandGroupNormFn.apply(
-                nhwc.reshape(b, spatial, c).contiguous(), self.weight,
+                nhwc.reshape(b, spatial_size, c).contiguous(), self.weight,
                 self.bias, groups, 1e-5, fuse_relu)
             return y.reshape(b, h, w, c).permute(0, 3, 1, 2)
         if fuse_relu:
             nhwc = torch.relu(nhwc)
-        g = nhwc.reshape(b, groups, spatial // groups, c)
-        f32 = g.float()
+        g = nhwc.reshape(b, groups, spatial_size // groups, c)
+        f32 = g.to(torch.promote_types(x.dtype, torch.float32))
         m1 = f32.mean((2, 3), keepdim=True)
         m2 = f32.square().mean((2, 3), keepdim=True)
         inv = torch.rsqrt(torch.clamp(m2 - m1 * m1, min=0.0) + 1e-5)
         y = (g - m1.to(x.dtype)) * inv.to(x.dtype)
-        table_s = self.weight.reshape(groups, cg).repeat(1, c // cg)
-        table_b = self.bias.reshape(groups, cg).repeat(1, c // cg)
+        table_s, table_b = self._tables(c)
         y = (y * table_s[None, :, None, :].to(x.dtype)
              + table_b[None, :, None, :].to(x.dtype))
         return y.reshape(b, h, w, c).permute(0, 3, 1, 2)
@@ -173,7 +264,9 @@ class BatchNorm(nn.Module):
     While ``sync`` holds a data-parallel group (``nn.sync.synchronized``),
     train mode takes the statistics of the global batch: the float32 sums
     of x and x^2 over the rank's (N, H, W), summed over the ranks with
-    their gradients (every rank holds as many rows)."""
+    their gradients (every rank holds as many rows). Sharded
+    (``nn.spatial``), the sums cross every rank of the mesh and divide by
+    the global count (the ranks' blocks may differ in rows)."""
 
     def __init__(self, channels: int, eps: float = 1e-3,
                  use_scale: bool = True, momentum: float = 0.99):
@@ -192,7 +285,16 @@ class BatchNorm(nn.Module):
         shape = (1, -1, 1, 1)
         f = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
-            if self.sync is None:
+            sp = spatial.active()
+            if sp is not None:
+                c = f.shape[1]
+                count = (f.shape[0] * sp.dp.world * f.shape[3]
+                         * sp.rows(self, f.shape[2]))
+                sums = all_reduce_sum(torch.cat(
+                    [f.sum((0, 2, 3)), f.square().sum((0, 2, 3))]),
+                    sp.world.group) / count
+                mean, mean_sq = sums[:c], sums[c:]
+            elif self.sync is None:
                 mean = f.mean((0, 2, 3))
                 mean_sq = f.square().mean((0, 2, 3))
             else:
@@ -247,7 +349,7 @@ class SqueezeExcite(nn.Module):
                               compute_dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        se = torch.relu(self.Dense_0(x.mean((-2, -1))))
+        se = torch.relu(self.Dense_0(spatial.mean_hw(x, self)))
         se = torch.sigmoid(self.Dense_1(se))
         return x * se[:, :, None, None]
 

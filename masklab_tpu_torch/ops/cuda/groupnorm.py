@@ -23,15 +23,16 @@ def band_groupnorm_plain(x: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, groups: int, eps: float = 1e-5,
                          fuse_relu: bool = False) -> torch.Tensor:
     """Flat-band GroupNorm over [N, Q, C], the ragged branch of the
-    reference (``masklab_tpu/nn/layers.py:121-133``): f32 statistics per
-    contiguous band of Q*C/G flat elements, normalize and the periodic
-    per-(band, c mod C/G) affine in ``x.dtype``."""
+    reference (``masklab_tpu/nn/layers.py:121-133``): f32 statistics (f64
+    for a float64 map) per contiguous band of Q*C/G flat elements,
+    normalize and the periodic per-(band, c mod C/G) affine in
+    ``x.dtype``."""
     if fuse_relu:
         x = torch.relu(x)
     n, q, c = x.shape
     cg = c // groups
     flat = x.reshape(n, groups, -1)
-    f32 = flat.float()
+    f32 = flat.to(torch.promote_types(x.dtype, torch.float32))
     m1 = f32.mean(-1, keepdim=True)
     m2 = f32.square().mean(-1, keepdim=True)
     inv = torch.rsqrt(torch.clamp(m2 - m1 * m1, min=0.0) + eps)
@@ -49,7 +50,8 @@ def band_groupnorm_backward_plain(x: torch.Tensor, dy: torch.Tensor,
                                   eps: float = 1e-5, fuse_relu: bool = False):
     """The exact flat-band gradient of :func:`band_groupnorm_plain` as the
     reference's ``_bgn_bwd`` computes it
-    (``masklab_tpu/ops/pallas/groupnorm_kernel.py:208-251``), in f32:
+    (``masklab_tpu/ops/pallas/groupnorm_kernel.py:208-251``), in f32 (f64
+    for a float64 map):
     ``dx = inv * (g - mean(g) - x^ * mean(g * x^))`` per band with
     ``g = dy * s_e``, cast once to ``x.dtype`` and, with ``fuse_relu``,
     zero where ``x <= 0``; ``dscale`` / ``dbias`` (f32) sum ``dy * x^`` /
@@ -57,7 +59,8 @@ def band_groupnorm_backward_plain(x: torch.Tensor, dy: torch.Tensor,
     Returns (dx, dscale, dbias)."""
     n, q, c = x.shape
     cg = c // groups
-    f = x.float().reshape(n, groups, -1)
+    acc = torch.promote_types(x.dtype, torch.float32)
+    f = x.to(acc).reshape(n, groups, -1)
     if fuse_relu:
         f = torch.relu(f)
     length = f.shape[-1]
@@ -65,8 +68,8 @@ def band_groupnorm_backward_plain(x: torch.Tensor, dy: torch.Tensor,
     m2 = f.square().mean(-1, keepdim=True)
     inv = torch.rsqrt(torch.clamp(m2 - m1 * m1, min=0.0) + eps)
     xhat = (f - m1) * inv
-    dyf = dy.float().reshape(n, groups, -1)
-    g = dyf * scale.float().reshape(groups, cg).repeat(1, length // cg)
+    dyf = dy.to(acc).reshape(n, groups, -1)
+    g = dyf * scale.to(acc).reshape(groups, cg).repeat(1, length // cg)
     dxf = inv * (g - g.mean(-1, keepdim=True)
                  - xhat * (g * xhat).mean(-1, keepdim=True))
     if fuse_relu:

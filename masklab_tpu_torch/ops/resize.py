@@ -4,7 +4,8 @@ Port of ``masklab_tpu/ops/resize.py:26-89``. TF1's source coordinate is
 ``src = i * (in - 1) / (out - 1)`` with align_corners and ``src = i * in /
 out`` without. ``F.interpolate(align_corners=False)`` uses half-pixel
 centres instead, so it is not used: the port applies the same dense
-interpolation matrices as the reference, in float32.
+interpolation matrices as the reference, in float32 (in float64 for a
+float64 input).
 """
 from __future__ import annotations
 
@@ -47,6 +48,11 @@ def _matrix(in_size: int, out_size: int, align_corners: bool,
             _interp_matrix(in_size, out_size, align_corners)).to(device)
 
 
+def work_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The interpolation's type: float64 for float64, else float32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def resize_spatial(x: torch.Tensor, out_h: int, out_w: int,
                    align_corners: bool = True,
                    channels_last: bool = True) -> torch.Tensor:
@@ -56,12 +62,12 @@ def resize_spatial(x: torch.Tensor, out_h: int, out_w: int,
     ah, aw = (-3, -2) if channels_last else (-2, -1)
     in_h, in_w = x.shape[ah], x.shape[aw]
     orig_dtype = x.dtype
-    x = x.float()
+    x = x.to(work_dtype(x.dtype))
     if in_h != out_h:
-        wh = _matrix(in_h, out_h, align_corners, x.device)
+        wh = _matrix(in_h, out_h, align_corners, x.device).to(x.dtype)
         x = torch.movedim(torch.tensordot(x, wh, dims=([ah], [1])), -1, ah)
     if in_w != out_w:
-        ww = _matrix(in_w, out_w, align_corners, x.device)
+        ww = _matrix(in_w, out_w, align_corners, x.device).to(x.dtype)
         x = torch.movedim(torch.tensordot(x, ww, dims=([aw], [1])), -1, aw)
     return x.to(orig_dtype) if orig_dtype.is_floating_point else x
 

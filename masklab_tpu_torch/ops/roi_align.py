@@ -28,20 +28,30 @@ def _sample_weights(lo: torch.Tensor, hi: torch.Tensor, crop: int,
     return w * inside[..., None]
 
 
+def _own_rows(wy: torch.Tensor, rows) -> torch.Tensor:
+    return wy if rows is None else wy[..., rows[1]:rows[2]]
+
+
 def batched_crop_and_resize(fmaps: torch.Tensor, boxes_yxyx: torch.Tensor,
-                            crop_size=(14, 14)) -> torch.Tensor:
+                            crop_size=(14, 14), rows=None) -> torch.Tensor:
     """[B, H, W, C] maps x [B, K, 4] normalized boxes -> [B, K, ch, cw, C].
 
     A bfloat16 map is interpolated in bfloat16 (f32 accumulation), like the
-    reference's bf16 branch; otherwise everything runs in float32.
+    reference's bf16 branch; a float64 map in float64; otherwise everything
+    runs in float32.
+    ``rows`` = (the map's rows, start, stop): ``fmaps`` holds rows [start,
+    stop) of it, and the result is their share of the crops (the crops are
+    its sum over the blocks).
     """
-    h, w = fmaps.shape[1], fmaps.shape[2]
+    h = fmaps.shape[1] if rows is None else rows[0]
+    w = fmaps.shape[2]
     ch, cw = crop_size
     boxes_yxyx = boxes_yxyx.float()
-    wy = _sample_weights(boxes_yxyx[..., 0], boxes_yxyx[..., 2], ch, h)
+    wy = _own_rows(_sample_weights(boxes_yxyx[..., 0], boxes_yxyx[..., 2],
+                                   ch, h), rows)
     wx = _sample_weights(boxes_yxyx[..., 1], boxes_yxyx[..., 3], cw, w)
-    if fmaps.dtype == torch.bfloat16:
-        wy, wx = wy.to(torch.bfloat16), wx.to(torch.bfloat16)
+    if fmaps.dtype in (torch.bfloat16, torch.float64):
+        wy, wx = wy.to(fmaps.dtype), wx.to(fmaps.dtype)
     else:
         fmaps = fmaps.float()
     rows = torch.einsum('bkih,bhwc->bkiwc', wy, fmaps)
@@ -50,14 +60,16 @@ def batched_crop_and_resize(fmaps: torch.Tensor, boxes_yxyx: torch.Tensor,
 
 def crop_and_resize_indexed(fmaps: torch.Tensor, boxes_yxyx: torch.Tensor,
                             box_indices: torch.Tensor,
-                            crop_size=(14, 14)) -> torch.Tensor:
+                            crop_size=(14, 14), rows=None) -> torch.Tensor:
     """``tf.image.crop_and_resize`` with a source image per box, in float32:
     [N, H, W, C] maps x [K, 4] normalized boxes x [K] indices ->
-    [K, ch, cw, C]."""
-    h, w = fmaps.shape[1], fmaps.shape[2]
+    [K, ch, cw, C]. ``rows``: as ``batched_crop_and_resize``."""
+    h = fmaps.shape[1] if rows is None else rows[0]
+    w = fmaps.shape[2]
     ch, cw = crop_size
     boxes_yxyx = boxes_yxyx.float()
-    wy = _sample_weights(boxes_yxyx[:, 0], boxes_yxyx[:, 2], ch, h)
+    wy = _own_rows(_sample_weights(boxes_yxyx[:, 0], boxes_yxyx[:, 2], ch,
+                                   h), rows)
     wx = _sample_weights(boxes_yxyx[:, 1], boxes_yxyx[:, 3], cw, w)
     rows = torch.einsum('kih,khwc->kiwc', wy, fmaps[box_indices].float())
     return torch.einsum('kjw,kiwc->kijc', wx, rows)

@@ -73,6 +73,11 @@ class MaskLabPredictor:
             self.device = resolve_device(device)
             self.model = hold_compute_dtype(model.to(self.device).eval())
             return
+        if mesh.shape['model'] != 1:
+            raise ValueError(
+                f'a mesh of {mesh.shape}: the predictor serves over a data '
+                'axis; a model axis splits a train step\'s frames '
+                '(parallel.spatial_batch_sharding)')
         self.device = mesh.devices[0]
         state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
         self.model = self._replicas(state)

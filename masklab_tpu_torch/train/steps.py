@@ -19,6 +19,14 @@ backpropagates its own rows' total and the global batch's gradient is the
 mean of the ranks' gradients once the statistics' gradients have crossed
 the ranks; the reported loss and metrics are their means over the ranks.
 Every rank then applies the same update.
+
+Given a rank's groups on a (data, model) mesh (``spatial``,
+``nn.spatial.SpatialRanks``), each rank holds its data row's images and a
+block of their rows (``parallel.spatial_shard_batch``), the step runs
+inside ``nn.spatial.spatially_sharded``, and every rank computes its data
+row's whole loss (the heads' rows gathered, the segmentation's pixel sums
+over the row's ranks): each collective's gradient is its adjoint, so the
+mean of the mesh's gradients is the one-process step's.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from ..models.detection import batched_assign_boxes
 from ..models.instance import assign_masks
 from ..models.masklab import MaskLab
 from ..models.semantic import assign_seg
+from ..nn.spatial import SpatialRanks, spatially_sharded
 from ..nn.sync import Ranks, all_reduce_, synchronized
 from .state import TrainState
 
@@ -134,9 +143,18 @@ def mean_over_ranks(tensors: Dict[str, torch.Tensor], ranks: Ranks
     return {k: out[k] for k in tensors}
 
 
+def _sync_block(model: MaskLab, ranks: Optional[Ranks],
+                spatial: Optional[SpatialRanks]):
+    if spatial is not None:
+        return spatially_sharded(model, *spatial)
+    if ranks is not None:
+        return synchronized(model, ranks)
+    return contextlib.nullcontext()
+
+
 def make_train_step(model: MaskLab, with_metrics: bool = True,
-                    seed: int = 42, ranks: Optional[Ranks] = None
-                    ) -> Callable:
+                    seed: int = 42, ranks: Optional[Ranks] = None,
+                    spatial: Optional[SpatialRanks] = None) -> Callable:
     """The train step: (state, batch) -> (state, metrics). ``state`` is a
     ``TrainState`` of ``model``, updated in place; ``batch`` holds tensors
     on the model's device (``as_batch``): this rank's rows of the global
@@ -144,10 +162,11 @@ def make_train_step(model: MaskLab, with_metrics: bool = True,
     run's base seed (``train.seed``): each step's drop-connect
     (efficientnet) draws from a CPU generator seeded from it and the step,
     as the reference folds ``PRNGKey(seed)`` with the step (its bits differ
-    from the reference's draws; their distribution is the same)."""
-    def sync_block():
-        return (synchronized(model, ranks) if ranks is not None
-                else contextlib.nullcontext())
+    from the reference's draws; their distribution is the same).
+    ``spatial``: the dp x sp step on this rank's block of its data row
+    (``ranks`` is then ignored: the gradients' mean is over the mesh)."""
+    box_ranks = spatial.dp if spatial is not None else ranks
+    mesh = spatial.world if spatial is not None else ranks
 
     def train_step(state: TrainState, batch: Dict):
         if state.model is not model:
@@ -156,7 +175,7 @@ def make_train_step(model: MaskLab, with_metrics: bool = True,
         # the CPU generator keeps the seed's low 32 bits
         generator = torch.Generator().manual_seed(
             (seed * 1_000_003 + state.step) % (1 << 32))
-        with sync_block():
+        with _sync_block(model, ranks, spatial):
             with record_function('stage:forward'):
                 out = model.trainer_outputs(
                     batch['images'], batch['gt_boxes'],
@@ -164,13 +183,13 @@ def make_train_step(model: MaskLab, with_metrics: bool = True,
             with record_function('stage:losses'):
                 total, new_box_state, metrics = losses_of(
                     model, out, batch, state.box_loss_state, with_metrics,
-                    ranks)
+                    box_ranks)
             with record_function('stage:backward'):
                 grads = gradients(total, state.params)
-        if ranks is not None:
+        if mesh is not None:
             with record_function('stage:all_reduce'):
-                grads = mean_over_ranks(grads, ranks)
-                metrics = mean_over_ranks(metrics, ranks)
+                grads = mean_over_ranks(grads, mesh)
+                metrics = mean_over_ranks(metrics, mesh)
         with record_function('stage:optimizer'):
             state.apply_gradients(grads)
         state.box_loss_state = new_box_state
@@ -180,20 +199,24 @@ def make_train_step(model: MaskLab, with_metrics: bool = True,
 
 
 def make_eval_step(model: MaskLab, with_metrics: bool = True,
-                   ranks: Optional[Ranks] = None) -> Callable:
+                   ranks: Optional[Ranks] = None,
+                   spatial: Optional[SpatialRanks] = None) -> Callable:
     """(state, batch) -> metrics, with the running BatchNorm statistics and
     no gradient; with ``ranks``, of this rank's rows (the box loss's
     statistics of the global batch), the metrics averaged over the
-    ranks."""
+    ranks; with ``spatial``, of this rank's block (as ``make_train_step``),
+    averaged over the mesh."""
+    box_ranks = spatial.dp if spatial is not None else ranks
+    mesh = spatial.world if spatial is not None else ranks
 
     def eval_step(state: TrainState, batch: Dict):
-        with torch.no_grad():
+        with torch.no_grad(), _sync_block(model, None, spatial):
             _, _, metrics = compute_losses(model, batch,
                                            state.box_loss_state, train=False,
                                            with_metrics=with_metrics,
-                                           ranks=ranks)
-            if ranks is not None:
-                metrics = mean_over_ranks(metrics, ranks)
+                                           ranks=box_ranks)
+            if mesh is not None:
+                metrics = mean_over_ranks(metrics, mesh)
         return metrics
 
     return eval_step

@@ -46,8 +46,8 @@ TRAINING_MODULES = ['data.dataset', 'data.generator', 'data.imglab',
 # the deployment slice's modules: the backbone zoo, hot-reload, the servers
 DEPLOY_MODULES = ['nn.backbone.efficientnet', 'nn.backbone.mobilenetv2',
                   'nn.backbone.vgg', 'serving.batching', 'serving.server']
-# the data-parallel slice's modules
-PARALLEL_MODULES = ['parallel.mesh', 'parallel.multihost']
+# the data-parallel slice's modules, and the dp x sp sharding's
+PARALLEL_MODULES = ['parallel.mesh', 'parallel.multihost', 'nn.spatial']
 # the fused head and the utilities; TensorFlow is imported only inside the
 # reference's functions of keras_export / ref_shim
 UTILITY_MODULES = ['models.fused_mask_head', 'utils.keras_import',

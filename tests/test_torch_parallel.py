@@ -374,8 +374,9 @@ def test_drop_connect_draws_are_rows_of_the_global_draw():
 
 def test_shard_batch_and_mesh_arguments():
     """``shard_batch`` gives a rank its rows and refuses an indivisible
-    batch; ``make_mesh`` takes the first ``data`` devices and refuses a
-    model axis (the dp x sp sharding is not ported)."""
+    batch; ``make_mesh`` takes the first ``data`` devices, and with a
+    model axis the first ``data * model`` (tests/test_torch_spatial.py
+    holds the dp x sp layout)."""
     from masklab_tpu_torch.nn.sync import Ranks
     rows = {'a': np.arange(6), 'b': np.arange(12).reshape(6, 2)}
     got = parallel.shard_batch(rows, Ranks(None, 1, 3))
@@ -384,8 +385,8 @@ def test_shard_batch_and_mesh_arguments():
         parallel.shard_batch(rows, Ranks(None, 0, 4))
     mesh = parallel.make_mesh(data=2, devices=['cpu', 'cpu', 'cpu'])
     assert mesh.shape == {'data': 2, 'model': 1} and mesh.size == 2
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        parallel.make_mesh(model=2, devices=['cpu', 'cpu'])
+    mesh = parallel.make_mesh(model=2, devices=['cpu', 'cpu', 'cpu'])
+    assert mesh.shape == {'data': 1, 'model': 2} and mesh.size == 2
     with pytest.raises(ValueError):
         parallel.make_mesh(data=3, devices=['cpu', 'cpu'])
 
