@@ -1,0 +1,2 @@
+"""The traced window's train-step operations over the H100's bf16 peak."""
+from perfbench.harness.readings import mfu as read  # noqa: F401
