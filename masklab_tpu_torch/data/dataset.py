@@ -20,10 +20,13 @@ from typing import Dict, Optional, Sequence
 import cv2
 import numpy as np
 
+from ..utils.profiling import count
 from .tables import parse_float, read_table
 
 
 def read_image(filepath: str) -> np.ndarray:
+    """An RGB image; each call counts one ``data.decoded_images``."""
+    count('data.decoded_images')
     image = cv2.imread(filepath)
     return cv2.cvtColor(image, cv2.COLOR_BGR2RGB)
 

@@ -14,9 +14,18 @@ only (it never touches the device; the trainer uploads):
   * ``shard=(rank, world)``: a rank of a data-parallel trainer builds only
     its rows of each global batch; every rank keeps the same shuffle and
     the same scale draws.
+
+Spans (``utils.profiling``): a batch is ``data:read`` (the dataset's
+slice: its decodes and re-rasterization) then ``data:rescale``; in the
+prefetch thread each batch is a ``data:batch`` span with the batch's
+index ``k`` (unique in the process), around its building and
+``data:queue_put`` (blocked on a full queue: the producer is ahead). The
+counter ``data.queue_empty`` counts each batch the consumer asked for
+while the queue was empty.
 """
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 from typing import (Dict, Iterable, Iterator, Optional, Sequence, Tuple,
@@ -25,7 +34,11 @@ from typing import (Dict, Iterable, Iterator, Optional, Sequence, Tuple,
 import cv2
 import numpy as np
 
+from ..utils.profiling import count, span
 from .dataset import MaskLabDataset
+
+# the prefetched batches' indices, over every prefetcher of the process
+_batch_ids = itertools.count()
 
 
 class MaskLabGenerator:
@@ -63,10 +76,12 @@ class MaskLabGenerator:
         if self.shard is not None:
             rows //= self.shard[1]
             start += self.shard[0] * rows
-        data = self.dataset[start:start + rows]
+        with span('data:read'):
+            data = self.dataset[start:start + rows]
         scale = self.scale_buckets[
             self.rng.randint(len(self.scale_buckets))]
-        return self.rescale_batch(data, scale)
+        with span('data:rescale'):
+            return self.rescale_batch(data, scale)
 
     @staticmethod
     def rescale_batch(data: Dict, scale_ratio: float) -> Dict:
@@ -246,33 +261,41 @@ class PrefetchIterator:
     PrefetchIterator otherwise blocks forever on ``q.put`` holding
     ``prefetch`` full batches alive, keeps consuming the underlying
     iterator, and (for MaskLabGenerator) can fire its end-of-epoch shuffle
-    concurrently with a successor's ``__getitem__``."""
+    concurrently with a successor's ``__getitem__``.
+
+    ``k``: the index of the batch the iterator gave last."""
 
     def __init__(self, iterable: Iterable, prefetch: int = 4):
         self.iterable = iterable
         self.q: queue.Queue = queue.Queue(maxsize=prefetch)
+        self.k: Optional[int] = None
         self._stop = threading.Event()
         self.thread = threading.Thread(target=self._fill, daemon=True)
         self.thread.start()
 
+    def _put(self, item) -> None:
+        while not self._stop.is_set():
+            try:
+                self.q.put(item, timeout=0.1)
+                return
+            except queue.Full:
+                continue
+
     def _fill(self):
+        items = iter(self.iterable)
         try:
-            for item in self.iterable:
-                while not self._stop.is_set():
-                    try:
-                        self.q.put(item, timeout=0.1)
-                        break
-                    except queue.Full:
-                        continue
-                if self._stop.is_set():
-                    return   # do NOT advance the source iterator further
-        finally:
+            # once stopped, do NOT advance the source iterator further
             while not self._stop.is_set():
-                try:
-                    self.q.put(None, timeout=0.1)
-                    break
-                except queue.Full:
-                    continue
+                with span('data:batch') as built:
+                    item = next(items, None)
+                    if item is None:
+                        return
+                    k = next(_batch_ids)
+                    built.set(k=k)
+                    with span('data:queue_put'):
+                        self._put((k, item))
+        finally:
+            self._put(None)
 
     def close(self, timeout: float = 5.0):
         """Stop the fill thread without consuming the source further."""
@@ -281,7 +304,10 @@ class PrefetchIterator:
 
     def __iter__(self):
         while True:
+            if self.q.empty():
+                count('data.queue_empty')
             item = self.q.get()
             if item is None:
                 return
-            yield item
+            self.k, batch = item
+            yield batch

@@ -22,7 +22,6 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfiguration
@@ -33,6 +32,7 @@ from ..nn.layers import frozen_batch_stats
 from ..ops.boxes import decode_boxes
 from ..ops.nms import batched_class_aware_nms
 from ..prior import generate_priors, priors_from_config
+from ..utils.profiling import span
 from .detection import BoxRegressionSubNet, ClassificationSubNet, FeaturePyramid
 from .fused_mask_head import FusedMaskSubNet
 from .instance import MaskSubNet, mask_distribute
@@ -232,11 +232,11 @@ class MaskLab(nn.Module):
     def forward(self, images: torch.Tensor) -> Dict:
         """Inference: raw heads -> detection-config NMS -> masks.
         images: NHWC [B, H, W, 3] in [0, 255]."""
-        with record_function('stage:raw_heads'):
+        with span('stage:raw_heads'):
             out = self.raw_heads(images)
-        with record_function('stage:nms'):
+        with span('stage:nms'):
             proposals = self.proposals(out)
-        with record_function('stage:mask_branch'):
+        with span('stage:mask_branch'):
             roi_masks = self.mask_branch(out['features'], proposals,
                                          out['image_hw'])
         return dict(cls_pred=out['cls_pred'], loc_pred=out['loc_pred'],

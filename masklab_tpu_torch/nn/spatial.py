@@ -47,9 +47,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
-from torch.profiler import record_function
 
 from ..ops.resize import _interp_matrix, resize_spatial, work_dtype
+from ..utils.profiling import span
 from .sync import Ranks, all_reduce_sum, exchange_rows, gather_rows, ranks_of
 
 
@@ -89,7 +89,7 @@ class Spatial:
         if self.sp.world == 1:
             return n
         t = torch.tensor([n], dtype=torch.int64)
-        with record_function('collective:rows'):
+        with span('collective:rows'):
             dist.all_reduce(t, group=self.host)
         return int(t)
 

@@ -47,7 +47,8 @@ from typing import List, NamedTuple, Sequence, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.profiler import record_function
+
+from ..utils import profiling
 
 
 class Ranks(NamedTuple):
@@ -64,9 +65,9 @@ def ranks_of(group=None) -> Ranks:
 
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over the ranks, in place; every rank gets the same bits.
-    Each call is a ``collective:all_reduce`` span for the profiler (the
-    host's time in the reduction, its wait included)."""
-    with record_function('collective:all_reduce'):
+    Each call is a ``collective:all_reduce`` span (``utils.profiling``:
+    the host's time in the reduction, its wait included)."""
+    with profiling.span('collective:all_reduce'):
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
     return t
 
@@ -195,7 +196,7 @@ class _RowExchange(torch.autograd.Function):
         ctx.shape = x.shape
         ctx.channels_last = x.dim() == 4 and x.is_contiguous(
             memory_format=torch.channels_last)
-        with record_function(span):
+        with profiling.span(span):
             return _exchange(x, ranks, parts, windows, dim)
 
     @staticmethod
@@ -204,7 +205,7 @@ class _RowExchange(torch.autograd.Function):
         grad = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
         if ctx.channels_last:
             grad = grad.contiguous(memory_format=torch.channels_last)
-        with record_function(span):
+        with profiling.span(span):
             grad = _return_rows(g, grad, ranks, parts, windows, dim)
         return grad, None, None, None, None, None
 

@@ -35,13 +35,13 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..config import ModelConfiguration
 from ..device import resolve_device
 from ..models.instance import trim_instances
 from ..nn.layers import hold_compute_dtype
 from ..ops.resize import resize_bilinear, resize_like
+from ..utils.profiling import span
 from .postprocess import crop_and_pad_masks, smooth_semantics, upsample_output
 from .summary import fused_summary_union
 from .visualize import draw_boxes, draw_segmentation
@@ -136,13 +136,13 @@ class MaskLabPredictor:
         boxes_up, masks_up, sem_up = upsample_output(
             det_boxes, inst_masks, sem, ds_hw, in_hw)
         if mode in ('visualize', 'summarize'):
-            with record_function('stage:analytics'):
+            with span('stage:analytics'):
                 summary, union = fused_summary_union(
                     boxes_up, sem_up, masks_up, in_hw,
                     len(post.instance_colors), post.default_road_size)
             if mode == 'summarize':
                 return dict(det_boxes=boxes_up, summarize=summary)
-            with record_function('stage:draw'):
+            with span('stage:draw'):
                 vis = draw_boxes(images, boxes_up)
                 vis = draw_segmentation(vis, union, post.instance_colors,
                                         post.instance_alpha)
@@ -175,8 +175,9 @@ class MaskLabPredictor:
         ``semantic`` [B, H, W, 3] uint8 and ``padded_masks`` [B, K, H, W]
         uint8.
 
-        Each stage runs inside a ``torch.profiler`` span named
-        ``stage:<name>``, so a trace splits a request's time by stage:
+        Each stage runs inside a span named ``stage:<name>``
+        (``utils.profiling``: kept while recording, a ``record_function``
+        in a profiler's trace), so a trace splits a request's time by stage:
         upload, downsample, then ``MaskLab.forward``'s raw_heads, nms and
         mask_branch, then postprocess (with analytics and draw inside it)
         and download."""
@@ -210,17 +211,17 @@ class MaskLabPredictor:
         with zero frames to ``rows``, the pad rows dropped on the device."""
         keep = len(images)
         with torch.inference_mode():
-            with record_function('stage:upload'):
+            with span('stage:upload'):
                 x = torch.from_numpy(np.ascontiguousarray(images)).to(device)
                 if rows > keep:
                     x = torch.cat([x, x.new_zeros((rows - keep,)
                                                   + x.shape[1:])])
-            with record_function('stage:downsample'):
+            with span('stage:downsample'):
                 down, in_hw, ds_hw = self._downsample(x)
             out = model(down)
-            with record_function('stage:postprocess'):
+            with span('stage:postprocess'):
                 out = self._postprocess(out, x, down, in_hw, ds_hw, mode)
-            with record_function('stage:download'):
+            with span('stage:download'):
                 return {k: v[:keep].cpu().numpy() for k, v in out.items()}
 
     def predict_bytes(self, content: bytes,

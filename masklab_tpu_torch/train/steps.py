@@ -5,10 +5,10 @@ losses as one objective (each ``mean``-ed), one backward, the optimizer
 update, the BatchNorm statistics (updated by the train-mode forward) and
 the box loss's moving statistics, and the metrics when asked for. The
 reference's step is a pure jitted function; this one updates the state in
-place and returns it. Its four phases are ``record_function`` spans
-(``stage:forward``, ``stage:losses``, ``stage:backward``,
+place and returns it. Its four phases are spans (``utils.profiling``:
+``stage:forward``, ``stage:losses``, ``stage:backward``,
 ``stage:optimizer``; a data-parallel step's ``stage:all_reduce`` before the
-last) for the profiler.
+last).
 
 Given a data-parallel group (``ranks``, ``nn.sync.Ranks``), each rank runs
 the step on its rows of the global batch (``parallel.shard_batch``) and the
@@ -35,7 +35,6 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..losses import BoxLossState, box_loss, class_loss, mask_loss, seg_loss
 from ..metrics import class_binary_iou, detection_iou_metric
@@ -45,14 +44,22 @@ from ..models.masklab import MaskLab
 from ..models.semantic import assign_seg
 from ..nn.spatial import SpatialRanks, spatially_sharded
 from ..nn.sync import Ranks, all_reduce_, synchronized
+from ..utils.profiling import count, span
 from .state import TrainState
 
 
 def as_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """A batch of numpy arrays (``make_random_batch``'s keys) as tensors on
-    ``device``."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in batch.items()}
+    ``device``. Where that is not the host, the counters ``upload.bytes``
+    and ``upload.pageable_bytes`` (those not in pinned memory) take the
+    bytes copied."""
+    host = {k: torch.as_tensor(np.asarray(v)) for k, v in batch.items()}
+    if torch.device(device).type != 'cpu':
+        sizes = [(t.nbytes, t.is_pinned()) for t in host.values()]
+        count('upload.bytes', sum(n for n, _ in sizes))
+        count('upload.pageable_bytes',
+              sum(n for n, pinned in sizes if not pinned))
+    return {k: t.to(device) for k, t in host.items()}
 
 
 def losses_of(model: MaskLab, out: Dict, batch: Dict, box_state: BoxLossState,
@@ -176,21 +183,21 @@ def make_train_step(model: MaskLab, with_metrics: bool = True,
         generator = torch.Generator().manual_seed(
             (seed * 1_000_003 + state.step) % (1 << 32))
         with _sync_block(model, ranks, spatial):
-            with record_function('stage:forward'):
+            with span('stage:forward'):
                 out = model.trainer_outputs(
                     batch['images'], batch['gt_boxes'],
                     with_metrics=with_metrics, generator=generator)
-            with record_function('stage:losses'):
+            with span('stage:losses'):
                 total, new_box_state, metrics = losses_of(
                     model, out, batch, state.box_loss_state, with_metrics,
                     box_ranks)
-            with record_function('stage:backward'):
+            with span('stage:backward'):
                 grads = gradients(total, state.params)
         if mesh is not None:
-            with record_function('stage:all_reduce'):
+            with span('stage:all_reduce'):
                 grads = mean_over_ranks(grads, mesh)
                 metrics = mean_over_ranks(metrics, mesh)
-        with record_function('stage:optimizer'):
+        with span('stage:optimizer'):
             state.apply_gradients(grads)
         state.box_loss_state = new_box_state
         return state, metrics

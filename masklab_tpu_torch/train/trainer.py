@@ -26,10 +26,12 @@ when the valid batch divides by its size (else each rank the whole valid
 batch), and only rank 0 writes checkpoints, metrics, history, TensorBoard,
 MLflow and the logs; the others wait at a barrier.
 
-A step's host work runs inside ``record_function`` spans beside the step's
-own (``stage:forward`` ... ``stage:optimizer``): ``stage:data_wait`` (the
-wait on the prefetcher), ``stage:upload``, ``stage:validation`` and
-``stage:checkpoint``.
+Each step of the loop is a ``step`` span (``utils.profiling``) with the
+batch's index ``k``, the index the prefetch thread's ``data:batch`` span of
+that batch carries; inside it ``stage:data_wait`` (the wait on the
+prefetcher), ``stage:pad``, ``stage:upload`` and the step's own
+(``stage:forward`` ... ``stage:optimizer``). An epoch's end adds
+``stage:validation`` and ``stage:checkpoint``.
 """
 from __future__ import annotations
 
@@ -41,7 +43,6 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from ..config import ModelConfiguration
 from ..data.dataset import MaskLabDataset
@@ -52,6 +53,7 @@ from ..models.masklab import build_masklab
 from ..nn.sync import Ranks, ranks_of
 from ..utils.loggers import (CSVLogger, MLflowLogger, MultiLogger,
                              TensorBoardLogger)
+from ..utils.profiling import span
 from .checkpoints import CheckpointManager
 from .optimizers import chain, cyclic_lr, masked_updates, rectified_adam
 from .state import TrainState, trainable_mask
@@ -158,8 +160,9 @@ class MaskLabTrainer:
     # ---- running ----
 
     def _prepare(self, batch: Dict) -> Dict[str, torch.Tensor]:
-        batch = pad_boxes_to(batch, self.max_gt_boxes)
-        with record_function('stage:upload'):
+        with span('stage:pad'):
+            batch = pad_boxes_to(batch, self.max_gt_boxes)
+        with span('stage:upload'):
             return as_batch(batch, self.device)
 
     def run_phase(self, name: str, generator: MaskLabGenerator,
@@ -214,16 +217,19 @@ class MaskLabTrainer:
                 t0 = time.time()
                 step_metrics = []
                 for _ in range(steps):
-                    with record_function('stage:data_wait'):
-                        try:
-                            batch = next(it)
-                        except StopIteration:
-                            prefetcher.close()
-                            prefetcher = PrefetchIterator(source, prefetch=4)
-                            it = iter(prefetcher)
-                            batch = next(it)
-                    self.state, metrics = step_fn(self.state,
-                                                  self._prepare(batch))
+                    with span('step') as step:
+                        with span('stage:data_wait'):
+                            try:
+                                batch = next(it)
+                            except StopIteration:
+                                prefetcher.close()
+                                prefetcher = PrefetchIterator(source,
+                                                              prefetch=4)
+                                it = iter(prefetcher)
+                                batch = next(it)
+                        step.set(k=prefetcher.k)
+                        self.state, metrics = step_fn(self.state,
+                                                      self._prepare(batch))
                     # the device scalars; reading them here would wait for
                     # each step
                     step_metrics.append(metrics)
@@ -245,7 +251,7 @@ class MaskLabTrainer:
                     f'loss={train_loss:.5f} ({time.time() - t0:.1f}s)')
         val_loss = None
         if eval_fn is not None and len(valid_generator) > 0:
-            with record_function('stage:validation'):
+            with span('stage:validation'):
                 vrows = []
                 for vi in range(len(valid_generator)):
                     vm = eval_fn(self.state,
@@ -262,7 +268,7 @@ class MaskLabTrainer:
         epoch_metrics['lr'] = float(schedule(int(self.state.step)))
         self.metrics_logger.log(self._global_epoch, epoch_metrics)
         self._global_epoch += 1
-        with record_function('stage:checkpoint'):
+        with span('stage:checkpoint'):
             if self.writes:
                 self.ckpt.save_epoch(self.state, val_loss
                                      if val_loss is not None else train_loss,

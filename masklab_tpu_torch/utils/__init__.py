@@ -2,9 +2,9 @@
 the reference's Keras h5 weights in and out (``keras_import``,
 ``keras_export``)."""
 from .loggers import CSVLogger, MLflowLogger, MultiLogger, TensorBoardLogger
-from .profiling import (StageTimer, device_trace, enable_compilation_cache,
-                        timed_blocked)
+from .profiling import (StageTimer, count, device_trace,
+                        enable_compilation_cache, span, timed_blocked)
 
-__all__ = ['StageTimer', 'device_trace', 'timed_blocked',
+__all__ = ['StageTimer', 'span', 'count', 'device_trace', 'timed_blocked',
            'enable_compilation_cache', 'CSVLogger', 'TensorBoardLogger',
            'MLflowLogger', 'MultiLogger']
