@@ -11,7 +11,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
   1. card: prints ``nvidia-smi --query-gpu=name,power.limit``;
   2. build: compiles the CUDA kernels from ``masklab_tpu_torch/csrc``;
   3. kernels: holds each kernel against its plain PyTorch version at the
-     main path's shapes and at edge cases (K2, K3 exact; K1 f32 within
+     main path's shapes and at edge cases (K2, K3, K4 exact; K1 f32 within
      2e-5, bf16 within 4 bf16 ulp at operand scale of the plain version and
      0.51 ulp of its f64 evaluation; K1's backward within K1B_*) and times
      each kernel at the main path's shapes: ``device_ms`` (= ``ms``), its
@@ -22,6 +22,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      bitmask build and the sweep; K2 timed with the L2 flushed before each
      launch (its ``ms``) and back to back, the whole candidate pool around
      it (``pool_ms``), and at the road preset's call form (exact, cold);
+     K4 at the batch cell's b16 1080p call, without and with the union
+     (one launch a call, no thresholded pixel flipped);
   4. reference: narrow float32 models (width 32, depth 1, 512 px) of the
      headline configuration and of the road preset on the card against the
      same models on the CPU, where every kernel's plain version runs; and
@@ -39,7 +41,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      summarize), each mode with its launch counts and certificate
      fallbacks counted from 0 just before it; each request's model outputs
      must be finite, every slot must fill, every kernel must launch on
-     every forward, and each mode's outputs have their shapes and finite
+     every forward, K4 once a visualize or summarize call and never in
+     raw, and each mode's outputs have their shapes and finite
      analytics. One more request per mode, traced with ``torch.profiler``,
      splits its host and device time by the predictor's stage spans
      (``analytics`` and ``draw`` inside ``postprocess``). On the headline
@@ -141,7 +144,8 @@ Phases 8-11 run after phase 12, phase 14 after them, phase 7 after it,
 and phase 13 last.
 
 Then it prints the ``kernels`` JSON line (each kernel's ``launches`` from
-the headline raw path, K1's backward's from the train path,
+the headline raw path, K1's backward's from the train path, K4's from the
+headline summarize path,
 ``launches_by_path`` for every path), the card line and, last, ``{"ok":
 true, "device": {...}}``. It needs a CUDA card, the repo, and cv2 and grpc
 for the servers.
@@ -197,6 +201,10 @@ MODES = ('raw', 'visualize', 'summarize')
 # GroupNorms of each of the 3 mask-head levels (14x14 crops: 196 pixels,
 # ragged for 16 groups), K2 once for the candidate pool, K3 in both stages
 PER_FORWARD = {'band_groupnorm': 12, 'segment_topk': 1, 'nms_keep': 2}
+# the path whose launches each kernel's row reports ('headline raw' for the
+# others): K1's backward trains, K4 reduces the paste in summarize
+KERNEL_PATH = {'band_groupnorm_backward': 'train',
+               'paste_stats': 'headline summarize'}
 K1_F32_ATOL = 2e-5             # f32 statistics summed in another order
 # bf16, in ulps at operand scale. Against the plain version: it rounds m1,
 # inv, scale, bias and four operations to bf16, and even the exactly rounded
@@ -1078,6 +1086,116 @@ def check_k3(kc, rng, edges: bool):
                 max_abs_err=0.0, ms=out['device_ms'], bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 chain_bound_ms=chain_cycles / max_sm_clock_hz() * 1e3, **out)
+
+
+PASTE_HW = (1080, 1920)     # the batch cell's frames
+PASTE_BOXES = 100            # forced dense: every NMS slot fills
+PASTE_CLASSES = 6
+
+
+def paste_inputs(rng, b, k, hw, ms, kept=1.0):
+    """K4's arguments as ``paste_stats_and_union`` makes them for b x k
+    forced-dense rows (int boxes, sides log-uniform from one pixel to the
+    frame, ``kept`` of them scoring 50 or more, the last two padding),
+    random 0/1 ``ms`` x ``ms`` masks and a noisy my_road trapezoid:
+    ((y1, y2, x1, x2, keep, masks, my_road), onehot)."""
+    from masklab_tpu_torch.serving import postprocess as tpost
+    from masklab_tpu_torch.serving.visualize import class_one_hot
+    h, w = hw
+    conf = np.where(rng.rand(b, k) < kept, rng.uniform(50, 100, (b, k)),
+                    rng.uniform(0, 50, (b, k)))
+    det = np.stack([rng.rand(b, k) * w, rng.rand(b, k) * h,
+                    np.exp(rng.uniform(0, np.log(w), (b, k))),
+                    np.exp(rng.uniform(0, np.log(h), (b, k))),
+                    rng.randint(0, PASTE_CLASSES, (b, k)), conf], -1)
+    det = det.astype(np.int32).astype(np.float32)
+    masks = (rng.rand(b, k, ms, ms) > 0.5).astype(np.float32)
+    det[:, -2:, 4:] = -1
+    masks[:, -2:] = 0
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None]
+    road = (ys >= h // 3) & (np.abs(xs - w * 0.5) < ys / h * w * 0.4)
+    road = road[None] ^ (rng.rand(b, h, w) > 0.97)
+    det_t = torch.from_numpy(det).to(DEVICE)
+    y1, y2, x1, x2, keep = tpost._paste_edges(det_t, hw, 50.0)
+    onehot = class_one_hot(det_t[..., 4].to(torch.int64),
+                           PASTE_CLASSES) * keep[..., None]
+    return ((y1, y2, x1, x2, keep, torch.from_numpy(masks).to(DEVICE),
+             torch.from_numpy(road).to(DEVICE)), onehot)
+
+
+def k4_flips(kc, args, onehot) -> dict:
+    """One wrapper call against the plain version: the differing entries
+    of each output (thresholded pixels flipped show in all of them); the
+    call must launch the kernel once."""
+    before = kc.launch_counts()['paste_stats']
+    got = kc.paste_reduce(*args, onehot)
+    torch.cuda.synchronize()
+    launched = kc.launch_counts()['paste_stats'] - before
+    if launched != 1:
+        raise AssertionError(f'paste_stats: {launched} launches a call')
+    want = kc.paste_reduce_plain(*args, onehot)
+    return {name: int((g != w_).sum()) for name, g, w_ in zip(
+        ('area', 'inter', 'rowany', 'union'), got, want) if w_ is not None}
+
+
+def check_k4(kc, rng, edges: bool):
+    """K4 at the batch cell's call: b16 x 100 forced-dense boxes, 28 x 28
+    masks, 1080 x 1920 frames, without the union (summarize) and with it
+    (visualize); exact against the plain version (and, with ``edges``, at
+    b2 x 12 at 96 x 128 with a fifth not kept, 32 x 32 masks at 4096 wide,
+    14 x 14 and 56 x 56 masks at 200 x 300, and 28 x 28 masks at 5000
+    wide, past one column chunk of the kernel). Device time of the summarize call
+    (``device_ms``, its own symbol) and of the visualize call
+    (``union_device_ms``); ``call_ms`` with the wrapper's box spans, zeroed
+    outputs and class words. Bound: the kept boxes' pixels at 4 f32
+    operations each (a multiply, an FMA, the keep multiply), against the
+    bytes of the masks, the box rows, the road map once, the row map and
+    the counts."""
+    from masklab_tpu_torch.ops.cuda import paste_stats as ps
+    b, k, ms = BATCH, PASTE_BOXES, 28
+    args, onehot = paste_inputs(rng, b, k, PASTE_HW, ms)
+    flips = {'summarize': k4_flips(kc, args, None),
+             'visualize': k4_flips(kc, args, onehot)}
+    if edges:
+        for name, shape in (('small', (2, 12, (96, 128), 8, 0.8)),
+                            ('32x32 at 4096', (2, 20, (64, 4096), 32, 1.0)),
+                            ('14x14 at 200x300', (3, 30, (200, 300), 14,
+                                                  0.9)),
+                            ('56x56 at 200x300', (2, 16, (200, 300), 56,
+                                                  0.9)),
+                            ('28x28 at 5000 wide', (2, 40, (48, 5000), 28,
+                                                    1.0))):
+            small, small_onehot = paste_inputs(rng, *shape)
+            flips[name] = k4_flips(kc, small, small_onehot)
+    bad = {case: f for case, f in flips.items() if any(f.values())}
+    if bad:
+        raise AssertionError(f'paste_stats differs from plain: {bad}')
+
+    def call():
+        return kc.paste_reduce(*args)
+    out = dict(call_ms=time_ms(call, 50),
+               device_ms=device_ms(call, 50, 'paste_stats'),
+               union_device_ms=device_ms(
+                   lambda: kc.paste_reduce(*args, onehot), 50, 'paste_stats'),
+               plain_ms=time_ms(lambda: kc.paste_reduce_plain(*args), 3,
+                                warmup=1))
+    y1, y2, x1, x2, keep = args[:5]
+    ys, ye, _ = ps.paste_span(y1, y2)
+    xs, xe, _ = ps.paste_span(x1, x2)
+    pixels = float(((ye - ys).clamp(min=0) * (xe - xs).clamp(min=0)
+                    * keep).sum())
+    h, w = PASTE_HW
+    nbytes = b * k * (ms * ms * 4 + 7 * 4 + h + 2 * 4) + b * h * w
+    b_ms, b_by = bound_ms(nbytes, pixels * 4)
+    return dict(name='paste_stats', route='cuda',
+                source='masklab_tpu_torch/csrc/paste_stats.cu',
+                replaces='none (the XLA reductions of masklab_tpu/serving/'
+                'postprocess.py:138-200)',
+                shape=f'[{b}, {k}] boxes, {ms}x{ms} masks, {h}x{w}',
+                max_abs_err=0.0, ms=out['device_ms'], bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, kept_pixels=pixels,
+                thresholded_pixels=float(kc.paste_reduce(*args)[0].sum()),
+                flips=flips, **out)
 
 
 def narrow(cfg):
@@ -2169,6 +2287,11 @@ def serve_path(kc, model, predictor, batches, mode: str, max_out: int,
             raise AssertionError(f'{mode}: {name} launched {counts[name]} '
                                  f'times in {REQUESTS} forwards, {per} a '
                                  'forward expected')
+    paste_calls = 0 if mode == 'raw' else REQUESTS
+    if counts['paste_stats'] != paste_calls:
+        raise AssertionError(f'{mode}: paste_stats launched '
+                             f'{counts["paste_stats"]} times in {REQUESTS} '
+                             f'calls, {paste_calls} expected')
     total = sum(latencies)
     stats = dict(mode=mode, batch=len(batches[0]),
                  img_per_s=len(batches[0]) * REQUESTS / total,
@@ -4515,7 +4638,8 @@ def main() -> int:
         return 0
     edges = not args.kernels_only
     kernels = [check_k1(kc, rng, edges), check_k1_backward(kc, rng, edges),
-               check_k2(kc, rng, edges), check_k3(kc, rng, edges)]
+               check_k2(kc, rng, edges), check_k3(kc, rng, edges),
+               check_k4(kc, rng, edges)]
     for k in kernels:
         print(f'kernel {k["name"]}: device {k["device_ms"]:.4f} ms, call '
               f'{k["call_ms"]:.4f} (plain {k["plain_ms"]:.4f}, bound '
@@ -4586,11 +4710,10 @@ def main() -> int:
         **{f'acceptance {g}': a for g, a in acceptance.items()
            if g != 'k1_maps'})
     for k in kernels:
-        k['launches_by_path'] = {p: v['launches'][k['name']]
+        k['launches_by_path'] = {p: v['launches'].get(k['name'], 0)
                                  for p, v in paths.items()}
-        k['launches'] = k['launches_by_path'][
-            'train' if k['name'] == 'band_groupnorm_backward'
-            else 'headline raw']
+        k['launches'] = k['launches_by_path'][KERNEL_PATH.get(
+            k['name'], 'headline raw')]
         if k['name'] == 'segment_topk':
             k['pool_fallbacks'] = {p: v['pool_fallbacks']
                                    for p, v in serve.items()}

@@ -6,11 +6,12 @@ its kernel for a CUDA tensor, counting the launches.
 """
 from __future__ import annotations
 
-from . import groupnorm, nms_keep, topk
+from . import groupnorm, nms_keep, paste_stats, topk
 from .groupnorm import (BandGroupNormFn, band_groupnorm,
                         band_groupnorm_backward, band_groupnorm_backward_plain,
                         band_groupnorm_plain)
 from .nms_keep import nms_keep_mask, nms_keep_mask_plain
+from .paste_stats import paste_reduce, paste_reduce_plain
 from .topk import (segment_topk, segment_topk_plain, segment_topk_rows,
                    segment_topk_rows_plain)
 
@@ -18,7 +19,8 @@ from .topk import (segment_topk, segment_topk_plain, segment_topk_rows,
 _COUNTERS = {'band_groupnorm': (groupnorm, 'launches'),
              'band_groupnorm_backward': (groupnorm, 'backward_launches'),
              'segment_topk': (topk, 'launches'),
-             'nms_keep': (nms_keep, 'launches')}
+             'nms_keep': (nms_keep, 'launches'),
+             'paste_stats': (paste_stats, 'launches')}
 
 
 def launch_counts() -> dict:
@@ -37,4 +39,5 @@ __all__ = ['band_groupnorm', 'band_groupnorm_plain', 'BandGroupNormFn',
            'segment_topk',
            'segment_topk_plain', 'segment_topk_rows', 'segment_topk_rows_plain',
            'nms_keep_mask', 'nms_keep_mask_plain',
+           'paste_reduce', 'paste_reduce_plain',
            'launch_counts', 'reset_launch_counts']

@@ -25,12 +25,14 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
 
-# source -> extra nvcc flags. nms_keep.cu must not contract a*b+c into an
-# FMA: the IoU has to round exactly like ops/boxes.py iou_yxyx.
+# source -> extra nvcc flags. nms_keep.cu and paste_stats.cu must not
+# contract a*b+c into an FMA: the IoU has to round exactly like
+# ops/boxes.py iou_yxyx, the paste like its plain version's GEMMs.
 SOURCES = {
     'band_groupnorm.cu': [],
     'segment_topk.cu': [],
     'nms_keep.cu': ['-fmad=false'],
+    'paste_stats.cu': ['-fmad=false'],
 }
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
 COMMON_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
@@ -49,6 +51,8 @@ SIGNATURES = {
     'mlk_nms_keep_build_only': [_P, _P, _P, _I, _I, _F, _I, _P],
     'mlk_nms_keep_smem_bytes': [_I, _I],
     'mlk_nms_keep_init': [],
+    'mlk_paste_stats': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -18,6 +18,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from ..ops.cuda.paste_stats import paste, paste_reduce, paste_weights
 from ..ops.morphology import semantic_smoothing
 from ..ops.resize import resize_bilinear
 from .visualize import class_one_hot
@@ -44,22 +45,6 @@ def upsample_output(roi_boxes: torch.Tensor, roi_masks: torch.Tensor,
     semantic = resize_bilinear(semantic, dst_hw[0], dst_hw[1],
                                align_corners=True)
     return boxes, masks, (semantic > 0.5).to(torch.int32)
-
-
-def _paste_weights(lo: torch.Tensor, hi: torch.Tensor, size: int,
-                   mask_size: int) -> torch.Tensor:
-    """[..., size, mask_size] matrices pasting a mask row into [lo, hi):
-    output pixel y in [ceil(lo), ceil(hi)) samples the mask at the
-    align-corners position (y - ceil(lo)) * (mask_size - 1) / (span - 1)."""
-    y = torch.arange(size, dtype=torch.float32, device=lo.device)
-    start = torch.ceil(lo)[..., None]
-    stop = torch.ceil(hi)[..., None]
-    span = torch.clamp(stop - start, min=1.0)
-    pos = (y - start) * (mask_size - 1) / torch.clamp(span - 1.0, min=1e-6)
-    inside = (y >= start) & (y < stop)
-    grid = torch.arange(mask_size, dtype=torch.float32, device=lo.device)
-    wgt = torch.clamp(1.0 - torch.abs(pos[..., None] - grid), min=0.0)
-    return wgt * inside[..., None]
 
 
 def _paste_edges(det_boxes: torch.Tensor, image_hw: Tuple[int, int],
@@ -91,20 +76,15 @@ def crop_and_pad_masks(det_boxes: torch.Tensor, roi_masks: torch.Tensor,
     det_boxes [B, K, 6] in upsampled units (conf x100), roi_masks
     [B, K, mh, mw].
     """
-    h, w = image_hw
-    mh, mw = roi_masks.shape[-2], roi_masks.shape[-1]
     y1, y2, x1, x2, keep = _paste_edges(det_boxes, image_hw, conf_threshold)
-    wy = _paste_weights(y1, y2, h, mh)                        # [B, K, H, mh]
-    wx = _paste_weights(x1, x2, w, mw)                        # [B, K, W, mw]
-    rows = torch.einsum('bkym,bkmn->bkyn', wy, roi_masks.float())
-    full = torch.einsum('bkxn,bkyn->bkyx', wx, rows)          # [B, K, H, W]
-    return full * keep[..., None, None]
+    return paste(y1, y2, x1, x2, keep, roi_masks, image_hw)
 
 
 def paste_stats_and_union(det_boxes: torch.Tensor, roi_masks: torch.Tensor,
                           image_hw: Tuple[int, int], unit: torch.Tensor,
                           my_road: torch.Tensor, num_classes: int,
-                          conf_threshold: float = 50.0) -> Dict:
+                          conf_threshold: float = 50.0,
+                          with_union: bool = True) -> Dict:
     """The statistics of the full-frame mask paste the analytics and the
     instance overlay read, without handing the pasted [B, K, H, W] tensor
     to more than one consumer.
@@ -112,21 +92,20 @@ def paste_stats_and_union(det_boxes: torch.Tensor, roi_masks: torch.Tensor,
     The paste is separable (full = wy @ mask @ wx^T), so the linear
     statistics (pixel count, size, horizontal extent) contract through the
     small [K, mh] / [K, mw] axes; the thresholded ones (vertical extent,
-    my_road overlap, area, class union) come from one pass over the pasted
-    tensor, batched over the images.
+    my_road overlap, area, class union) come from
+    ``ops.cuda.paste_reduce``: on the card one kernel over each kept box's
+    own pixels, on the CPU one pass over the pasted tensor.
 
     det_boxes [B, K, 6] upsampled rows (conf x100); roi_masks [B, K, mh, mw]
     (0/1); unit [B, H] metres per pixel of each row; my_road [B, H, W] bool
     -> dict of pixel / size / horiz / vert / inter / area [B, K] and union
-    [B, H, W, num_classes] float 0/1, the values of reducing
-    ``crop_and_pad_masks``' output."""
+    [B, H, W, num_classes] float 0/1 (None unless ``with_union``), the
+    values of reducing ``crop_and_pad_masks``' output."""
     h, w = image_hw
     mh, mw = roi_masks.shape[-2], roi_masks.shape[-1]
     y1, y2, x1, x2, keep = _paste_edges(det_boxes, image_hw, conf_threshold)
-    onehot = class_one_hot(det_boxes[..., 4].to(torch.int64),
-                           num_classes) * keep[..., None]
-    wy = _paste_weights(y1, y2, h, mh)                        # [B, K, H, mh]
-    wx = _paste_weights(x1, x2, w, mw)                        # [B, K, W, mw]
+    wy = paste_weights(y1, y2, h, mh)                         # [B, K, H, mh]
+    wx = paste_weights(x1, x2, w, mw)                         # [B, K, W, mw]
     m = roi_masks.float()
     # linear statistics through the mask axes
     sy = wy.sum(2)                                            # [B, K, mh]
@@ -139,13 +118,11 @@ def paste_stats_and_union(det_boxes: torch.Tensor, roi_masks: torch.Tensor,
     rowvec = torch.einsum('bkm,bkmn->bkn', u1y, m)            # [B, K, mw]
     colw = torch.einsum('bkxn,bkn->bkx', wx, rowvec)          # [B, K, W]
     horiz = keep * colw.max(-1).values
-    # thresholded statistics: one pass over the pasted tensor
-    rows = torch.einsum('bkym,bkmn->bkyn', wy, m)
-    full = torch.einsum('bkxn,bkyn->bkyx', wx, rows)          # [B, K, H, W]
-    th = (full * keep[..., None, None]) > 0.5
-    vert = (unit[:, None, :] * th.any(-1)).sum(-1)
-    inter = (my_road[:, None] & th).float().sum((2, 3))
-    area = th.float().sum((2, 3))
-    union = torch.einsum('bkhw,bkc->bhwc', th.float(), onehot)
+    # thresholded statistics
+    onehot = (class_one_hot(det_boxes[..., 4].to(torch.int64), num_classes)
+              * keep[..., None]) if with_union else None
+    area, inter, rowany, union = paste_reduce(y1, y2, x1, x2, keep, m,
+                                              my_road, onehot)
+    vert = (unit[:, None, :] * rowany).sum(-1)
     return dict(pixel=pixel, size=size, horiz=horiz, vert=vert, inter=inter,
-                area=area, union=(union > 0.5).float())
+                area=area, union=union)

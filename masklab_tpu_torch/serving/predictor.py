@@ -12,9 +12,9 @@ Port of ``MaskLabPredictor`` (``masklab_tpu/serving/predictor.py:42-265``):
       full-frame masks.
 
 In 'visualize' and 'summarize' the masks stay on the device: the analytics
-and the instance union are reductions of the full-frame paste
-(``summary.fused_summary_union``), so only the frame (uint8) and the table
-cross to the host. JPEG decode and encode run on the host through cv2,
+and (in 'visualize' alone) the instance union are reductions of the
+full-frame paste (``summary.fused_summary_union``), so only the frame
+(uint8) and the table cross to the host. JPEG decode and encode run on the host through cv2,
 imported where they are used.
 
 With a ``mesh`` (``parallel.make_mesh``) the predictor keeps one replica
@@ -139,7 +139,8 @@ class MaskLabPredictor:
             with span('stage:analytics'):
                 summary, union = fused_summary_union(
                     boxes_up, sem_up, masks_up, in_hw,
-                    len(post.instance_colors), post.default_road_size)
+                    len(post.instance_colors), post.default_road_size,
+                    with_union=mode == 'visualize')
             if mode == 'summarize':
                 return dict(det_boxes=boxes_up, summarize=summary)
             with span('stage:draw'):

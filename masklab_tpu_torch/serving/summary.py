@@ -141,18 +141,20 @@ def _crack_rows(seg: torch.Tensor, default_road_size: float) -> torch.Tensor:
 def fused_summary_union(det_boxes: torch.Tensor, seg: torch.Tensor,
                         roi_masks: torch.Tensor, image_hw: Tuple[int, int],
                         num_classes: int, default_road_size: float = 3.25,
-                        conf_threshold: float = 50.0):
+                        conf_threshold: float = 50.0,
+                        with_union: bool = True):
     """The analytics table and the per-class instance union, reduced from
     the mask paste in one pass (``paste_stats_and_union``).
 
     det_boxes [B, K, 6] upsampled rows; seg [B, H, W, C_seg] binarized
     semantics (my_road at 1, crack at 2); roi_masks [B, K, mh, mw]
     binarized -> (summary [B, K + 1, 11], union [B, H, W, num_classes]
-    float 0/1)."""
+    float 0/1, or None unless ``with_union``: the table does not read it)."""
     my_road = seg[..., 1].float()
     unit = road_width_per_row(my_road, default_road_size)     # [B, H]
     stats = paste_stats_and_union(det_boxes, roi_masks, image_hw, unit,
-                                  my_road > 0.5, num_classes, conf_threshold)
+                                  my_road > 0.5, num_classes, conf_threshold,
+                                  with_union)
     inst = det_boxes.float()
     inc = (stats['inter'] / (stats['area'] + EPS) > 0.1).float()
     inst_rows = torch.stack([

@@ -199,7 +199,8 @@ def test_unported_backbone_raises():
 
 
 @pytest.mark.parametrize('call', ['band_groupnorm', 'segment_topk',
-                                  'segment_topk_rows', 'nms_keep_mask'])
+                                  'segment_topk_rows', 'nms_keep_mask',
+                                  'paste_reduce'])
 def test_wrappers_refuse_other_devices(call):
     """A wrapper takes the plain version only for a CPU tensor; any other
     device launches the kernel or raises, never falls back."""
@@ -215,6 +216,10 @@ def test_wrappers_refuse_other_devices(call):
         'nms_keep_mask': lambda: kc.nms_keep_mask(
             torch.empty(2, 8, 4, **meta),
             torch.empty(2, 8, dtype=torch.bool, **meta), 0.5, 4),
+        'paste_reduce': lambda: kc.paste_reduce(
+            *[torch.empty(2, 8, **meta)] * 5,
+            torch.empty(2, 8, 28, 28, **meta),
+            torch.empty(2, 64, 96, dtype=torch.bool, **meta)),
     }
     before = kc.launch_counts()
     with pytest.raises(ValueError, match='unsupported device'):
@@ -231,4 +236,5 @@ def test_cpu_wrappers_take_plain_and_count_nothing():
                        kc.band_groupnorm_plain(x, s, b, 16))
     assert kc.launch_counts() == {'band_groupnorm': 0,
                                   'band_groupnorm_backward': 0,
-                                  'segment_topk': 0, 'nms_keep': 0}
+                                  'segment_topk': 0, 'nms_keep': 0,
+                                  'paste_stats': 0}

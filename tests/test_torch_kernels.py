@@ -484,3 +484,288 @@ def test_nms_keep_kernel_matches_plain_edges(cuda, name):
     v = torch.from_numpy(valid).to(cuda)
     got = kc.nms_keep_mask(boxes, v, thresh, cap)
     assert torch.equal(got, kc.nms_keep_mask_plain(boxes, v, thresh, cap))
+
+
+# ---- K4: the thresholded statistics of the mask paste ----
+
+PASTE_CLASSES = 6
+
+
+def _paste_scene(seed, b, k, hw, ms, kept=1.0, classes=PASTE_CLASSES):
+    """Forced-dense detection rows as the predictor hands them over (int
+    boxes in frame pixels, confidence x100), random 0/1 RoI masks and a
+    noisy my_road trapezoid -> (det [B, K, 6] f32, masks [B, K, mh, mw]
+    int32, my_road [B, H, W] bool). Box sides are log-uniform from one
+    pixel to the frame; ``kept`` of the slots score 50 or more; classes
+    are drawn from ``classes``; the last two rows of each image are
+    padding (class -1, confidence -1, mask 0)."""
+    h, w = hw
+    mh, mw = (ms, ms) if isinstance(ms, int) else ms
+    rng = np.random.RandomState(seed)
+
+    def side(n):
+        return np.exp(rng.uniform(0, np.log(n), (b, k)))
+
+    conf = np.where(rng.rand(b, k) < kept, rng.uniform(50, 100, (b, k)),
+                    rng.uniform(0, 50, (b, k)))
+    det = np.stack([rng.rand(b, k) * w, rng.rand(b, k) * h, side(w), side(h),
+                    rng.randint(0, classes, (b, k)), conf], -1)
+    det = det.astype(np.int32).astype(np.float32)
+    masks = (rng.rand(b, k, mh, mw) > 0.5).astype(np.int32)
+    det[:, -2:, 4:] = -1
+    masks[:, -2:] = 0
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None]
+    road = (ys >= h // 3) & (np.abs(xs - w * 0.5) < ys / h * w * 0.4)
+    return det, masks, road[None] ^ (rng.rand(b, h, w) > 0.97)
+
+
+def _paste_edge_scene():
+    """Boxes at every frame edge, past the frame, full-frame, spans of 1,
+    2 (positions 0 and mh - 1 only), 28 (integer positions) and 55, one
+    clipped to nothing; in image 0 one box under 50 (not kept) and two
+    padding rows; in image 1 every score under 50, so every slot is kept,
+    padding included. A full mask and a checkerboard among random ones."""
+    h, w = 96, 128
+    boxes = [(5, 5, 30, 30), (w - 3, h - 3, 40, 40), (1, h // 2, 6, 20),
+             (w // 2, 1, 20, 6), (w - 1, h // 2, 6, 20),
+             (w // 2, h - 1, 20, 6), (w // 2, h // 2, w, h),
+             (w // 2, h // 2, 3 * w, 3 * h), (10, 20, 1, 1), (30, 40, 2, 2),
+             (60, 50, 28, 28), (70, 45, 55, 55), (w + 10, h + 10, 4, 4),
+             (40, 30, 50, 33), (0, 0, 0, 0), (0, 0, 0, 0)]
+    k = len(boxes)
+    rng = np.random.RandomState(21)
+    det = np.zeros((2, k, 6), np.float32)
+    det[:, :, :4] = boxes
+    det[:, :, 4] = np.arange(k) % PASTE_CLASSES
+    det[0, :, 5] = rng.uniform(60, 100, k)
+    det[0, 13, 5] = 20
+    det[1, :, 5] = rng.uniform(0, 50, k)
+    det[:, -2:, 4:] = -1
+    masks = (rng.rand(2, k, 28, 28) > 0.5).astype(np.int32)
+    masks[:, 6] = 1
+    masks[:, 7] = (np.arange(28)[:, None] + np.arange(28)) % 2
+    masks[:, -2:] = 0
+    ys, xs = np.arange(h)[:, None], np.arange(w)[None]
+    road = np.broadcast_to((ys + xs) % 3 > 0, (2, h, w))
+    return det, masks, road
+
+
+def _paste_args(det, masks, road, device, classes=PASTE_CLASSES):
+    """The wrapper's arguments for a scene, as paste_stats_and_union makes
+    them: ((y1, y2, x1, x2, keep, masks, my_road), onehot [B, K, C])."""
+    from masklab_tpu_torch.serving import postprocess as tpost
+    from masklab_tpu_torch.serving.visualize import class_one_hot
+    det_t = torch.from_numpy(det).to(device)
+    road_t = torch.from_numpy(np.ascontiguousarray(road)).to(device)
+    y1, y2, x1, x2, keep = tpost._paste_edges(det_t, road.shape[1:], 50.0)
+    onehot = class_one_hot(det_t[..., 4].to(torch.int64),
+                           classes) * keep[..., None]
+    args = (y1, y2, x1, x2, keep, torch.from_numpy(masks).to(device).float(),
+            road_t)
+    return args, onehot
+
+
+PASTE_CPU_SCENES = {'random 2 x 12 at 96x128': lambda: _paste_scene(
+    11, 2, 12, (96, 128), 8, 0.8), 'edges': _paste_edge_scene}
+
+
+@pytest.mark.parametrize('with_union', [False, True])
+@pytest.mark.parametrize('scene', list(PASTE_CPU_SCENES))
+def test_paste_reduce_cpu_takes_plain_path(scene, with_union):
+    """On CPU tensors the wrapper is the plain version and launches
+    nothing."""
+    args, onehot = _paste_args(*PASTE_CPU_SCENES[scene](), 'cpu')
+    onehot = onehot if with_union else None
+    kc.reset_launch_counts()
+    got = kc.paste_reduce(*args, onehot)
+    want = kc.paste_reduce_plain(*args, onehot)
+    assert kc.launch_counts()['paste_stats'] == 0
+    for g, w in zip(got, want):
+        assert (g is None and w is None) or torch.equal(g, w)
+    assert (got[3] is None) == (not with_union)
+
+
+@pytest.mark.parametrize('scene', list(PASTE_CPU_SCENES))
+def test_paste_reduce_plain_matches_full_paste(scene):
+    """The plain version's four outputs are the reductions of
+    crop_and_pad_masks' [B, K, H, W] paste thresholded at 0.5; its union
+    is also what the kernel's class words give: each pixel ORs the class
+    bit of every box over it (class_bits, union_from_bits)."""
+    from masklab_tpu_torch.ops.cuda import paste_stats as ps
+    from masklab_tpu_torch.serving import postprocess as tpost
+    det, masks, road = PASTE_CPU_SCENES[scene]()
+    args, onehot = _paste_args(det, masks, road, 'cpu')
+    area, inter, rowany, union = kc.paste_reduce_plain(*args, onehot)
+    th = tpost.crop_and_pad_masks(torch.from_numpy(det),
+                                  torch.from_numpy(masks),
+                                  road.shape[1:]) > 0.5
+    road_t = args[-1]
+    assert torch.equal(area, th.float().sum((2, 3)))
+    assert torch.equal(inter, (road_t[:, None] & th).float().sum((2, 3)))
+    assert torch.equal(rowany, th.any(-1))
+    assert area.sum() > 0 and (inter < area).any()
+    words = (th[..., None].to(torch.int32)
+             * ps.class_bits(onehot)[:, :, None, None])   # [B, K, H, W, 1]
+    ored = torch.zeros_like(words[:, 0])
+    for i in range(words.shape[1]):
+        ored |= words[:, i]
+    assert torch.equal(union, ps.union_from_bits(ored, PASTE_CLASSES))
+    assert torch.equal(
+        tpost.crop_and_pad_masks(torch.from_numpy(det),
+                                 torch.from_numpy(masks), road.shape[1:]),
+        ps.paste(*args[:6], road.shape[1:]))
+
+
+@pytest.mark.parametrize('mask_size', [1, 2, 28, 32])
+def test_paste_weights_two_adjacent_taps(mask_size):
+    """What the kernel's per-pixel arithmetic rests on: in each paste
+    weight row of an inside pixel at most two taps are nonzero, floor(pos)
+    and the one above it (none above the mask's last grid point), pos is
+    in [0, mask_size - 1], and both weights are max(1 - |pos - g|, 0) as
+    rounded in float32; outside pixels have none."""
+    from masklab_tpu_torch.ops.cuda.paste_stats import (paste_span,
+                                                        paste_weights)
+    rng = np.random.RandomState(mask_size)
+    size = 300
+    lo = np.concatenate([rng.uniform(0, size, 400),
+                         rng.randint(0, size, 200)]).astype(np.float32)
+    hi = np.minimum(lo + np.concatenate(
+        [rng.uniform(0, size, 300), rng.randint(0, 60, 300)]), size)
+    lo, hi = torch.from_numpy(lo), torch.from_numpy(hi.astype(np.float32))
+    wgt = paste_weights(lo, hi, size, mask_size)           # [N, size, ms]
+    start, stop, den = (v[:, None] for v in paste_span(lo, hi))
+    y = torch.arange(size, dtype=torch.float32)
+    inside = (y >= start) & (y < stop)
+    pos = (y - start) * (mask_size - 1) / den
+    g0 = torch.floor(pos)
+    assert ((pos[inside] >= 0) & (pos[inside] <= mask_size - 1)).all()
+    grid = torch.arange(mask_size, dtype=torch.float32)
+    at_tap = (grid == g0[..., None]) | (grid == g0[..., None] + 1)
+    assert not (wgt[~at_tap] != 0).any()
+    assert not (wgt[~inside] != 0).any()
+
+    def tap(g):
+        return torch.clamp(1.0 - torch.abs(pos - g), min=0.0)
+
+    idx0 = g0.clamp(0, mask_size - 1).long()[..., None]
+    idx1 = (g0 + 1).clamp(0, mask_size - 1).long()[..., None]
+    w0 = wgt.gather(-1, idx0)[..., 0]
+    w1 = torch.where(g0 + 1 < mask_size, wgt.gather(-1, idx1)[..., 0], 0.0)
+    assert torch.equal(w0[inside], tap(g0)[inside])
+    assert torch.equal(w1[inside], torch.where(
+        g0 + 1 < mask_size, tap(g0 + 1), torch.zeros_like(pos))[inside])
+    assert (tap(g0 + 1)[inside & (g0 + 1 >= mask_size)] == 0).all()
+
+
+@pytest.mark.parametrize('classes', [1, 6, 31, 32, 33, 40, 70])
+def test_class_words_round_trip(classes):
+    """A union over any number of classes: class c is bit c % 32 of word
+    c // 32 (bit 31 the sign bit), and ORing the words of several boxes
+    gives each class present among them."""
+    from masklab_tpu_torch.ops.cuda import paste_stats as ps
+    rng = np.random.RandomState(classes)
+    onehot = torch.from_numpy(
+        (rng.rand(3, 9, classes) > 0.6).astype(np.float32))
+    onehot[:, 0] = 0
+    onehot[:, 1, -1] = 1
+    bits = ps.class_bits(onehot)
+    assert bits.dtype == torch.int32
+    assert bits.shape == (3, 9, -(-classes // 32))
+    back = ps.union_from_bits(bits[:, :, None], classes)[:, :, 0]
+    assert torch.equal(back, onehot)
+    ored = bits[:, 0] | bits[:, 1] | bits[:, 2]
+    assert torch.equal(ps.union_from_bits(ored, classes),
+                       onehot[:, :3].amax(1))
+
+
+@pytest.mark.parametrize('mask_width,width,chunk', [
+    (28, 1920, 1920), (28, 100, 128), (28, 5000, 4000), (1, 1, 32),
+    (56, 8192, 3936), (1024, 2000, 1344), (1024, 64, 64)])
+def test_paste_column_chunk(mask_width, width, chunk):
+    """The columns a CTA stages at a time: whole warps, no more than the
+    frame needs, and with the warps' mask-wide rows within the 48 KB of
+    shared memory a launch gets without opting in."""
+    from masklab_tpu_torch.ops.cuda import paste_stats as ps
+    got = ps.column_chunk(mask_width, width)
+    assert got == chunk and got % 32 == 0
+    assert got * ps.TAP_BYTES + ps.WARPS * mask_width * 4 <= ps.SMEM_BYTES
+
+
+@pytest.mark.parametrize('mask_width', [0, 1025, 4096])
+def test_paste_column_chunk_refuses(mask_width):
+    """Masks wider than the kernel takes raise: no plain version runs on
+    the card in the kernel's place."""
+    from masklab_tpu_torch.ops.cuda import paste_stats as ps
+    with pytest.raises(ValueError, match='columns wide'):
+        ps.column_chunk(mask_width, 1920)
+
+
+def _full_width_rows(scene):
+    """A scene with the first two rows of each image a box across the whole
+    frame and one across nine tenths of it, both kept: boxes wider than the
+    kernel's column chunk."""
+    det, masks, road = scene
+    h, w = road.shape[1:]
+    det[:, 0, :4] = (w / 2, h / 2, w, h)
+    det[:, 1, :4] = (w / 2 + 7, h / 2, int(w * 0.9), h - 3)
+    det[:, :2, 5] = 90
+    return det, masks, road
+
+
+PASTE_GPU_SCENES = {
+    'cell b16 x 100 at 1080x1920 seed 15': lambda: _paste_scene(
+        15, 16, 100, (1080, 1920), 28, 1.0),
+    'cell b16 x 100 at 1080x1920 seed 16': lambda: _paste_scene(
+        16, 16, 100, (1080, 1920), 28, 1.0),
+    'cell, a third under 50': lambda: _paste_scene(
+        17, 16, 100, (1080, 1920), 28, 0.67),
+    'small 2 x 12 at 96x128': lambda: _paste_scene(
+        18, 2, 12, (96, 128), 8, 0.8),
+    'masks 32 x 32 at 4096 wide': lambda: _paste_scene(
+        19, 2, 20, (64, 4096), 32, 1.0),
+    'masks 14 x 20 at 200x300': lambda: _paste_scene(
+        20, 3, 30, (200, 300), (14, 20), 0.9),
+    'masks 56 x 56 at 200x300': lambda: _paste_scene(
+        23, 2, 16, (200, 300), 56, 0.9),
+    'masks 28 at 5000 wide, two column chunks': lambda: _full_width_rows(
+        _paste_scene(24, 2, 12, (48, 5000), 28, 1.0)),
+    'masks 8 x 1024 at 2000 wide, two column chunks': lambda:
+        _full_width_rows(_paste_scene(25, 2, 10, (40, 2000), (8, 1024))),
+    'a union over 40 classes': lambda: _paste_scene(
+        26, 2, 24, (96, 128), 28, 1.0, classes=40),
+    'edges': _paste_edge_scene,
+}
+PASTE_GPU_CLASSES = {'a union over 40 classes': 40}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('with_union', [False, True])
+@pytest.mark.parametrize('scene', list(PASTE_GPU_SCENES))
+def test_paste_reduce_kernel_matches_plain(cuda, scene, with_union):
+    """Exact: not one thresholded pixel flips (area, inter and the row
+    map equal, the union equal), in one kernel launch a call."""
+    args, onehot = _paste_args(*PASTE_GPU_SCENES[scene](), cuda,
+                               PASTE_GPU_CLASSES.get(scene, PASTE_CLASSES))
+    onehot = onehot if with_union else None
+    before = kc.launch_counts()['paste_stats']
+    got = kc.paste_reduce(*args, onehot)
+    torch.cuda.synchronize()
+    assert kc.launch_counts()['paste_stats'] == before + 1
+    want = kc.paste_reduce_plain(*args, onehot)
+    flips = {name: int((g != w).sum()) for name, g, w in zip(
+        ('area', 'inter', 'rowany', 'union'), got, want) if w is not None}
+    assert (got[3] is None) == (not with_union)
+    assert not any(flips.values()), flips
+    assert want[0].sum() > 0
+
+
+@pytest.mark.gpu
+def test_paste_reduce_refuses_wide_masks(cuda):
+    """Masks wider than the kernel takes raise on the card, launching
+    nothing (the plain version never runs there in its place)."""
+    args, onehot = _paste_args(*_paste_scene(22, 2, 4, (32, 48), (4, 1025)),
+                               cuda)
+    before = kc.launch_counts()['paste_stats']
+    with pytest.raises(ValueError, match='columns wide'):
+        kc.paste_reduce(*args, onehot)
+    assert kc.launch_counts()['paste_stats'] == before

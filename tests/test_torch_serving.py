@@ -266,6 +266,19 @@ def test_fused_summary_union(scene):
                                    rtol=1e-5, atol=SUM_ATOL, err_msg=key)
 
 
+@pytest.mark.parametrize('scene', list(SCENES))
+def test_fused_summary_union_without_union(scene):
+    """``with_union=False`` (summarize mode) gives the same table bit for
+    bit and no union."""
+    b, h, w, k, ms, seed, noisy = SCENES[scene]
+    det, masks, seg = road_scene(b, h, w, k, ms, seed, noisy=noisy)
+    args = (t(det), t(seg), t(masks), (h, w), C)
+    with_sum, union = tsum.fused_summary_union(*args)
+    got_sum, none = tsum.fused_summary_union(*args, with_union=False)
+    assert none is None and union.shape == (b, h, w, C)
+    assert torch.equal(got_sum, with_sum)
+
+
 def test_summary_to_records():
     row = np.zeros((3, 11), np.float32)
     row[0, :6] = [1, 10, 20, 5, 6, 90]
@@ -351,6 +364,17 @@ def test_predictor_postprocess_on_identical_outputs(staged, mode):
             assert not (changed & ~ties.any(1)).any()
         else:
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_predictor_summarize_answer_is_visualize_table(staged):
+    """Summarize mode, which computes no instance union, answers the
+    analytics table of visualize mode, which does, bit for bit."""
+    frames, _, port_pred, _ = staged
+    summarize = port_pred.predict(frames, 'summarize')
+    visualize = port_pred.predict(frames, 'visualize')
+    assert sorted(summarize) == ['det_boxes', 'summarize']
+    for key in summarize:
+        np.testing.assert_array_equal(summarize[key], visualize[key])
 
 
 @pytest.mark.parametrize('mode', ['visualize', 'summarize'])
