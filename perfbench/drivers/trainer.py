@@ -198,9 +198,14 @@ class Session:
         window_s = clock['close'] - clock['open']
         images = clock['steps'] * self.generator.batch_size
         flops = sum(self._step_flops(shape) for shape in rec['shapes'])
+        # the rate spreads from run to run with the host (PERF.md section
+        # 2): printed, not bounded; the device's peak is the bounded reading
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                if ctx.device != 'cpu' else 0.0)
         return dict(
             attempted=images, failed=0, setup_s=rec['setup_s'],
-            e2e={'train_img_per_s': images / window_s},
+            e2e={'train_img_per_s': images / window_s,
+                 'train_peak_gib': peak},
             counters=dict(window_s=window_s, steps=clock['steps'],
                           traced_frames=images, flops=flops,
                           data_wait_s=sum(rec['waits']),

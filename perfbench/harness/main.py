@@ -220,6 +220,9 @@ def run_cell(args, bench: Dict, device: str = 'cuda',
         out['metrics'] = {m['name']: {'value': float(values[m['name']]),
                                       'unit': units[m['name']]}
                           for m in spec.reported(bench, cell['name'], False)}
+        # what the session measured that is no end-to-end metric of the cell
+        for name in sorted(set(result['e2e']) - set(out['metrics'])):
+            print(f'window {name}: {result["e2e"][name]}', file=sys.stderr)
     out['device'] = device_info
     out['checks'] = {name: {'value': value, 'limit': limit}
                      for name, value, limit in rows}

@@ -67,6 +67,16 @@ def share_of_window(key: str):
     return read
 
 
+def per_second_of_window(key: str):
+    """The counter ``key`` over the window's seconds."""
+    def read(run: Dict) -> Optional[float]:
+        c = run['counters']
+        if key not in c or not c.get('window_s'):
+            return None
+        return c[key] / c['window_s']
+    return read
+
+
 def busy_ms_per(key: str):
     """The traced window's device busy ms over the counter ``key``."""
     def read(run: Dict) -> Optional[float]:

@@ -17,6 +17,29 @@ forward's (the program's ``stage:raw_heads``, ``stage:nms`` and
 end, copies left out, the postprocess's (``stage:postprocess``, its
 analytics).
 
+The program's own spans reach the trace as GPU-side user annotations (the
+``record_function`` that ``utils.profiling.span`` opens while a profiler
+runs; the profiler gives each the device range of the kernels launched
+inside it). They arrive only when the session records the host's activity
+as well as the card's; of the host's it records the annotations alone
+(``USER_SCOPE``), since recording every operator doubles the trainer's host
+time a step; a session that records an operator is refused
+(``user_scope_only``, ``Trace.stop``). ``span_busy_s`` maps each
+annotation's name to the merged busy time of the kernels inside its
+ranges, marks and copies left out, nested and repeated annotations of one
+name counted once. The profiler ties a kernel to the innermost span open at
+its launch, so a span's range runs from the first to the last kernel
+launched in it outside its nested spans: an outer span holds its nested
+spans' kernels only where its own come before and after them. The device records are read from the profiler's raw
+results (``device_events``).
+
+The tracer can lose the device records of a session's first milliseconds
+(on the H100, in about one session in four: the first kernel and a burst
+some 2 ms later, under either session), which would refuse the run by its
+marks. So a session starts in a warm-up step whose records the profiler
+discards, with a burst of kernels launched and finished in it (``_prime``),
+and the trace starts at the next step.
+
 The kernels of the program's CUDA library (K1, K1's backward, K2, K3) are
 matched by their symbols (device_split's rule: the short name before any
 template argument list, entries of one short name summed); their call
@@ -24,9 +47,10 @@ shapes come from ``KernelCalls``, which records each wrapper's arguments
 while the trace runs."""
 from __future__ import annotations
 
+import contextlib
 import re
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -54,6 +78,68 @@ def short_name(symbol: str) -> str:
     return m.group(1) if m else symbol
 
 
+class Range(NamedTuple):
+    start: float                     # us from the trace's start
+    end: float
+
+
+class DeviceEvent(NamedTuple):
+    """A device record of the trace, as ``prof.events()`` gives it."""
+    name: str
+    device_type: object
+    time_range: Range
+    is_user_annotation: bool
+
+
+@contextlib.contextmanager
+def user_scope_only():
+    """Profiler sessions started inside record, of the host's operators,
+    only the ``record_function`` ranges (``torch.profiler`` has no option
+    for it: its start is given the scopes to record). Raises where no
+    session started inside went through the restriction."""
+    from torch._C._profiler import RecordScope
+    from torch.autograd import profiler as autograd_profiler
+    enable, started = autograd_profiler._enable_profiler, []
+
+    def user_scope(config, activities):
+        enable(config, activities, {RecordScope.USER_SCOPE})
+        started.append(True)
+    autograd_profiler._enable_profiler = user_scope
+    try:
+        yield
+    finally:
+        autograd_profiler._enable_profiler = enable
+    if not started:
+        raise RuntimeError('the profiler started without its scopes '
+                           'restricted to record_function ranges')
+
+
+def device_events(prof, device_type=None) -> Tuple[List[DeviceEvent], int]:
+    """The session's device records (kernels, copies, GPU-side annotations;
+    or those of ``device_type``) from the profiler's raw results, with the
+    names and times that ``prof.events()`` would give them (that call
+    parses every host record into Python and builds their tree, minutes
+    over a 51-s window), and the number of the other records that are
+    operators (``aten::``)."""
+    from torch.autograd.profiler_util import _rewrite_name
+    results = prof.profiler.kineto_results
+    base = results.trace_start_ns()
+    device_type = device_type or torch.autograd.DeviceType.CUDA
+    out, operators = [], 0
+    for k in results.events():
+        if k.device_type() != device_type:
+            operators += k.name().startswith('aten::')
+            continue
+        if k.is_hidden_event():
+            continue
+        start = k.start_ns() - base
+        out.append(DeviceEvent(
+            _rewrite_name(name=k.name(), with_wildcard=True), device_type,
+            Range(start / 1e3, (start + k.duration_ns()) / 1e3),
+            k.is_user_annotation()))
+    return out, operators
+
+
 def _merged(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     out = []
     for a, b in sorted(intervals):
@@ -62,6 +148,20 @@ def _merged(intervals: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
         else:
             out.append((a, b))
     return out
+
+
+def _overlap_s(a: List[Tuple[float, float]],
+               b: List[Tuple[float, float]]) -> float:
+    """Length of the intersection of two sorted lists of disjoint
+    intervals."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
 
 
 class Marks:
@@ -84,6 +184,18 @@ def check_marks(marks: int, calls) -> None:
                            f'made {calls} calls: {want} expected')
 
 
+def _prime() -> None:
+    """A burst of the kernels the window launches (marks and elementwise
+    ops), finished before the trace starts."""
+    x = torch.zeros(256, device='cuda')
+    for _ in range(8):
+        torch.cuda._sleep(MARK_CYCLES)
+        for _ in range(50):
+            x.add_(1.0)
+    torch.cuda.synchronize()
+    time.sleep(0.01)
+
+
 class Trace:
     """One profiler session of the card's activity and what was read from
     it (times in s)."""
@@ -94,6 +206,7 @@ class Trace:
         self.window_s = 0.0
         self.busy_s = 0.0
         self.stage_busy_s: Dict[str, float] = {}
+        self.span_busy_s: Dict[str, float] = {}
         self.kernel_s: Dict[str, List[float]] = {}
         self.device_ops: List[Tuple[str, float]] = []
         self.idle_gaps: List[Tuple[str, float]] = []
@@ -101,13 +214,19 @@ class Trace:
         self.active = False
 
     def start(self) -> None:
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import ProfilerActivity, profile, schedule
         activities = [ProfilerActivity.CPU]
         if self.device != 'cpu':
             torch.cuda.synchronize()
-            activities = [ProfilerActivity.CUDA]
-        self.prof = profile(activities=activities)
+            activities.append(ProfilerActivity.CUDA)
+        self.prof = profile(activities=activities,
+                            schedule=schedule(wait=0, warmup=1, active=1))
+        self.prof.record_steps = False       # no ProfilerStep annotation
         self.prof.__enter__()
+        if self.device != 'cpu':
+            _prime()
+        with user_scope_only():
+            self.prof.step()
         self.active = True
         self._t0 = time.perf_counter()
 
@@ -117,20 +236,28 @@ class Trace:
         self.window_s = time.perf_counter() - self._t0
         self.prof.__exit__(None, None, None)
         self.active = False
-        self._read(self.prof.events())
+        events, operators = device_events(self.prof)
+        if operators:
+            self.prof = None
+            raise RuntimeError(f'the profiler recorded {operators} host '
+                               'operators: its session was not restricted '
+                               'to record_function ranges')
+        self._read(events)
         self.prof = None
 
     def _read(self, events) -> None:
         cuda = torch.autograd.DeviceType.CUDA
-        ops = []
+        ops, annotations = [], {}
         for e in events:
-            if e.device_type != cuda or getattr(e, 'is_user_annotation',
-                                                False):
+            if e.device_type != cuda:
                 continue
-            ops.append((e.time_range.start / 1e6, e.time_range.end / 1e6,
-                        e.name))
+            interval = (e.time_range.start / 1e6, e.time_range.end / 1e6)
+            if getattr(e, 'is_user_annotation', False):
+                annotations.setdefault(e.name, []).append(interval)
+                continue
+            ops.append(interval + (e.name,))
         ops.sort()
-        busy, by_name, gaps = [], {}, []
+        busy, by_name, gaps, kernels = [], {}, [], []
         where, cursor = 'between calls', None
         stage = {'forward': 0.0, 'postprocess': 0.0}
         for start, end, name in ops:
@@ -148,12 +275,17 @@ class Trace:
             for kernel, symbols in KERNEL_SYMBOLS.items():
                 if short in symbols:
                     self.kernel_s.setdefault(kernel, []).append(end - start)
+            if not name.startswith('Memcpy'):
+                kernels.append((start, end))
             if where == 'forward':
                 stage['forward'] += end - start
             elif where == 'postprocess and download' and \
                     not name.startswith('Memcpy'):
                 stage['postprocess'] += end - start
         self.busy_s = sum(b - a for a, b in _merged(busy))
+        kernels = _merged(kernels)
+        self.span_busy_s = {name: _overlap_s(kernels, _merged(ranges))
+                            for name, ranges in annotations.items()}
         if self.marks:
             self.stage_busy_s = stage
         self.device_ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]

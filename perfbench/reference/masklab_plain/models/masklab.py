@@ -4,7 +4,8 @@ Port of ``masklab_tpu/models/masklab.py`` (``raw_heads`` :138-164,
 ``mask_branch`` :166-185, ``__call__`` :189-207, ``trainer_outputs``
 :209-244): shared backbone, FPN, cls/loc heads, detection-config NMS, the
 routed mask branch and the semantic head, with squeeze-excite heads (the
-road preset) where the configuration asks for them. Separable heads, the
+road preset) where the configuration asks for them, over a seresnet34,
+resnet50 or efficientnet b2 / b3 / b4 body. Separable heads, the
 fused mask head and the recomputed backbone, which no configuration of the
 benchmark runs, raise. The BatchNorm mode is
 the module's: ``model.train()`` for the reference's ``train=True``.

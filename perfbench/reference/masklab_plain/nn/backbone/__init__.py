@@ -1,25 +1,34 @@
 """Backbone: preprocess -> body -> endpoints -> P6/P7 extras.
 
 Port of ``BackboneNetwork`` (``masklab_tpu/nn/backbone/__init__.py:56-127``)
-over the bodies the benchmark's configurations run: seresnet34 and
-resnet50. Another name raises ``NotImplementedError``.
+over the bodies the reference runs: seresnet34, resnet50 and efficientnet
+b2 / b3 / b4. Another name raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
 from ..layers import GroupNorm, conv2d, pad_same_s2
-from . import resnet
+from . import efficientnet, resnet
 from .preprocess import preprocess_for
+
+
+def _effnet(name):
+    return (functools.partial(efficientnet.efficientnet, name),
+            efficientnet.CHANNELS[name], 'EfficientNet_0')
 
 
 # name -> (body factory, endpoint channels, the body's flax module name)
 _BODIES = {
     'resnet50': (resnet.resnet50, resnet.RESNET50_CHANNELS, 'ResNet_0'),
     'seresnet34': (resnet.seresnet34, resnet.CHANNELS, 'CMResNet_0'),
+    'efficientnetb2': _effnet('efficientnetb2'),
+    'efficientnetb3': _effnet('efficientnetb3'),
+    'efficientnetb4': _effnet('efficientnetb4'),
 }
 
 

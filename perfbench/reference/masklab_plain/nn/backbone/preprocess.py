@@ -14,6 +14,9 @@ _STD_RGB = (0.225, 0.224, 0.229)
 PREPROCESS_COMBOS = {
     'resnet50': (False, True, 0),
     'seresnet34': (True, False, 0),
+    'efficientnetb2': (True, True, 3),
+    'efficientnetb3': (True, True, 3),
+    'efficientnetb4': (True, True, 3),
 }
 
 

@@ -59,7 +59,7 @@ TRAIN_LIMITS = dict(grad_gap=0.05, change_gap=0.05, grad_group_gap=0.1,
 def test_sound_train_run_is_correct():
     out = _train_run()
     assert out['correct'], out['checks']
-    assert set(out['metrics']) == {'setup_s', 'train_img_per_s'}
+    assert set(out['metrics']) == {'setup_s', 'train_peak_gib'}
 
 
 @pytest.mark.parametrize('fault', ['state_unchanged', 'half_batch_loss',

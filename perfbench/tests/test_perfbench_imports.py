@@ -28,9 +28,11 @@ def test_run_modules_load_no_jax():
     found = _loaded(
         'import json, sys\n'
         'from perfbench.harness import main, env, trace, readings\n'
+        'from perfbench.harness import device_spans\n'
         'from perfbench.drivers import batch_predict, trainer\n'
         'from perfbench.reference import control, judge, train\n'
         'from perfbench.tools import control, faults, spread, witness\n'
+        'from perfbench.tools import body_swap\n'
         'import masklab_tpu_torch.serving.predictor\n'
         'import masklab_tpu_torch.train, masklab_tpu_torch.data\n'
         'print(json.dumps(env.forbidden_modules()))')

@@ -1,7 +1,8 @@
 """The plain reference against the program, at a small size on the CPU,
-for each configuration: with both in float32 the forward (raw heads,
-proposals, masks) and the analytics rows agree to rounding, and so do
-the training cell's steps."""
+for each configuration and for resnet50's with the efficientnetb4 body at
+its own widths: with both in float32 the forward (raw heads, proposals,
+masks) and the analytics rows agree to rounding, and so do the training
+cell's steps."""
 import copy
 
 import numpy as np
@@ -14,12 +15,17 @@ from perfbench.reference import pipeline
 from perfbench.tests import small
 
 
-@pytest.mark.parametrize('name', ['road-seresnet34-bf16', 'resnet50-bf16'])
+@pytest.mark.parametrize('name', ['road-seresnet34-bf16', 'resnet50-bf16',
+                                  'resnet50-bf16:efficientnetb4'])
 def test_reference_equals_program_in_float32(name):
+    """``<configuration>:<body>`` swaps the configuration's body."""
     from masklab_tpu_torch.config import ModelConfiguration
     from masklab_tpu_torch.models.masklab import MaskLab
     from masklab_tpu_torch.serving.predictor import MaskLabPredictor
+    name, _, body = name.partition(':')
     config = small.small_config(name)
+    if body:
+        config['model']['backbone']['backbone_type'] = body
     model_dict = copy.deepcopy(config['model'])
     model_dict['compute']['compute_dtype'] = 'float32'
     ctx = Context({}, config, {}, 2 ** 31 + 7, 1.0, False, 'cpu')

@@ -44,6 +44,15 @@ def test_every_per_layer_metric_has_a_reader():
                                            m['name'] + '.py')), m['name']
 
 
+def test_train_rate_reader():
+    """``train.img_per_s``: the window's images over its seconds, None
+    where the run counted no window."""
+    read = spec.reader('train.img_per_s')
+    assert read(dict(counters={'traced_frames': 24, 'window_s': 2.0})) == 12.0
+    assert read(dict(counters={'traced_frames': 24})) is None
+    assert read(dict(counters={'window_s': 2.0})) is None
+
+
 def test_contract_shape():
     assert set(BENCH) == {'command', 'paths', 'run_seconds', 'configs',
                           'workloads', 'end_to_end', 'per_layer'}
