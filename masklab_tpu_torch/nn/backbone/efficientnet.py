@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...utils.profiling import span
 from .. import spatial
 from ..layers import BatchNorm, conv2d, pad_same_s2
 
@@ -126,22 +127,28 @@ class _MBConv(nn.Module):
         inputs = x
         c = b = 0
         if self.expand != 1:
-            x = F.silu(self._BN_0(self.Conv_0(x)))
+            with span('mbconv:expand'):
+                x = F.silu(self._BN_0(self.Conv_0(x)))
             c = b = 1
         tap = x
-        if self.stride == 2:
-            x = pad_same_s2(x, self.kernel)
-        x = F.silu(getattr(self, f'_BN_{b}')(getattr(self, f'Conv_{c}')(x)))
-        se = spatial.mean_hw(x, self, keepdim=True)
-        se = F.silu(getattr(self, f'Conv_{c + 1}')(se))
-        x = x * torch.sigmoid(getattr(self, f'Conv_{c + 2}')(se))
-        x = getattr(self, f'_BN_{b + 1}')(getattr(self, f'Conv_{c + 3}')(x))
-        if self.residual:
-            if (self.drop_rate > 0.0 and self.training
-                    and generator is not None):
-                x = drop_connect(x, self.drop_rate, generator,
-                                 self.sync)
-            x = x + inputs
+        with span('mbconv:depthwise'):
+            if self.stride == 2:
+                x = pad_same_s2(x, self.kernel)
+            x = F.silu(getattr(self, f'_BN_{b}')(
+                getattr(self, f'Conv_{c}')(x)))
+        with span('mbconv:se'):
+            se = spatial.mean_hw(x, self, keepdim=True)
+            se = F.silu(getattr(self, f'Conv_{c + 1}')(se))
+            x = x * torch.sigmoid(getattr(self, f'Conv_{c + 2}')(se))
+        with span('mbconv:project'):
+            x = getattr(self, f'_BN_{b + 1}')(
+                getattr(self, f'Conv_{c + 3}')(x))
+            if self.residual:
+                if (self.drop_rate > 0.0 and self.training
+                        and generator is not None):
+                    x = drop_connect(x, self.drop_rate, generator,
+                                     self.sync)
+                x = x + inputs
         return x, tap
 
 
