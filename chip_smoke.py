@@ -23,7 +23,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launch (its ``ms``) and back to back, the whole candidate pool around
      it (``pool_ms``), and at the road preset's call form (exact, cold);
      K4 at the batch cell's b16 1080p call, without and with the union
-     (one launch a call, no thresholded pixel flipped);
+     (one launch a call, no thresholded pixel flipped); K5 (eval BatchNorm
+     with its epilogue) at resnet50's stem map with relu and at
+     EfficientNet-B4's widest expand map with silu (bf16, b16 at 270x480;
+     one launch a call, ``torch.equal`` to the plain chain; beside it
+     ATen's one-pass ``F.batch_norm`` with the activation in place);
   4. reference: narrow float32 models (width 32, depth 1, 512 px) of the
      headline configuration and of the road preset on the card against the
      same models on the CPU, where every kernel's plain version runs; and
@@ -199,8 +203,11 @@ DEVICE = 'cuda'
 MODES = ('raw', 'visualize', 'summarize')
 # kernel launches per forward at 512 px, forced dense: K1 in the 4
 # GroupNorms of each of the 3 mask-head levels (14x14 crops: 196 pixels,
-# ragged for 16 groups), K2 once for the candidate pool, K3 in both stages
-PER_FORWARD = {'band_groupnorm': 12, 'segment_topk': 1, 'nms_keep': 2}
+# ragged for 16 groups), K2 once for the candidate pool, K3 in both stages,
+# K5 in each of MobileNetV1's 27 BatchNorms (the headline; more in the other
+# bodies)
+PER_FORWARD = {'band_groupnorm': 12, 'segment_topk': 1, 'nms_keep': 2,
+               'batch_norm_act': 27}
 # the path whose launches each kernel's row reports ('headline raw' for the
 # others): K1's backward trains, K4 reduces the paste in summarize
 KERNEL_PATH = {'band_groupnorm_backward': 'train',
@@ -1086,6 +1093,102 @@ def check_k3(kc, rng, edges: bool):
                 max_abs_err=0.0, ms=out['device_ms'], bound_ms=b_ms,
                 bound_by=b_by, library_ms=None,
                 chain_bound_ms=chain_cycles / max_sm_clock_hz() * 1e3, **out)
+
+
+K5_STEM = (16, 64, 270, 480)     # resnet50's stem map in the batch cells
+K5_EXPAND = (16, 144, 270, 480)  # EfficientNet-B4's widest expand map
+# (stage 1's first block); with edges also a bottleneck's last BatchNorm with
+# its shortcut, and odd C (the scalar path)
+K5_EDGES = (((16, 256, 135, 240), 'relu', True),
+            ((16, 37, 68, 120), 'silu', True))
+
+
+def k5_case(kc, shape, act, residual=False, seed=0, timed=True) -> dict:
+    """K5 on a seeded bf16 channels_last map against the plain chain:
+    one launch a call and ``torch.equal``; with ``timed``, its device ms
+    (own symbol), call ms, plain ms, the library's one-pass form (ATen's
+    ``F.batch_norm`` on the running statistics, then the activation in
+    place: ``library_ms``, the device ms of all its kernels, and the share
+    of elements whose bits differ from the plain chain's) and the bound:
+    the map read (and the residual), the output written, at 3.35 TB/s."""
+    bna = kc.batch_norm_act
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    c, eps = shape[1], 1e-3
+
+    def draw(scale, shift=0.0):
+        return (torch.randn(shape, generator=g, device=DEVICE) * scale
+                + shift).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+    x = draw(3.0, 0.5)
+    r = draw(2.0) if residual else None
+    mean = torch.rand(c, generator=g, device=DEVICE) - 0.5
+    var = torch.rand(c, generator=g, device=DEVICE) + 0.5
+    weight = torch.rand(c, generator=g, device=DEVICE) + 0.5
+    bias = torch.rand(c, generator=g, device=DEVICE) * 0.6 - 0.3
+    mul = torch.rsqrt(var + eps) * weight
+
+    def call():
+        return bna.batch_norm_act(x, mean, mul, bias, r, act)
+
+    def plain():
+        return bna.batch_norm_act_plain(x, mean, mul, bias, r, act)
+
+    def library():
+        y = torch.nn.functional.batch_norm(x, mean, var, weight, bias,
+                                           False, 0.0, eps)
+        if r is not None:
+            y.add_(r)
+        if act == 'relu':
+            y.relu_()
+        elif act == 'silu':
+            torch.nn.functional.silu(y, inplace=True)
+        return y
+    before = kc.launch_counts()['batch_norm_act']
+    got = call()
+    torch.cuda.synchronize()
+    launches = kc.launch_counts()['batch_norm_act'] - before
+    if launches != 1:
+        raise AssertionError(f'batch_norm_act: {launches} launches a call')
+    want = plain()
+    differ = int((got != want).sum())
+    if differ:
+        raise AssertionError(f'batch_norm_act {list(shape)} {act}: {differ} '
+                             'elements differ from the plain chain')
+    out = dict(shape=list(shape), act=act, residual=residual, differ=differ,
+               launches_per_call=launches)
+    if not timed:
+        return out
+    e = x.numel()
+    nbytes = e * x.element_size() * (3 if residual else 2) + 3 * c * 4
+    flops = e * (3 + residual + {None: 0, 'relu': 1, 'silu': 4}[act])
+    b_ms, b_by = bound_ms(nbytes, flops)
+    dev = device_ms(call, 50, 'batch_norm_act')
+    return dict(out, device_ms=dev, call_ms=time_ms(call, 50),
+                plain_ms=time_ms(plain, 10), library_ms=device_ms(library, 50),
+                library_differ_share=int((library() != want).sum()) / e,
+                bound_ms=b_ms, bound_by=b_by, share_of_bound=b_ms / dev,
+                tb_per_s=nbytes / dev / 1e9)
+
+
+def check_k5(kc, rng, edges: bool):
+    """K5 at resnet50's stem map (relu) and at B4's widest expand map
+    (silu), bf16 b16 at 270x480, and with ``edges`` at K5_EDGES (untimed).
+    ``rng`` is unused: each case draws from a generator of its own."""
+    stem = k5_case(kc, K5_STEM, 'relu', seed=51)
+    expand = k5_case(kc, K5_EXPAND, 'silu', seed=52)
+    more = [k5_case(kc, shape, act, res, seed=53 + i, timed=False)
+            for i, (shape, act, res) in enumerate(K5_EDGES if edges else ())]
+    return dict(name='batch_norm_act', route='cuda',
+                source='masklab_tpu_torch/csrc/batch_norm_act.cu',
+                replaces='none (flax nn.BatchNorm, fused by XLA)',
+                shape=f'{list(K5_STEM)} bf16 relu', max_abs_err=0.0,
+                ms=stem['device_ms'],
+                **{k: stem[k] for k in ('device_ms', 'call_ms', 'plain_ms',
+                                        'library_ms', 'library_differ_share',
+                                        'bound_ms', 'bound_by',
+                                        'share_of_bound', 'tb_per_s',
+                                        'launches_per_call')},
+                expand=expand, edges=more)
 
 
 PASTE_HW = (1080, 1920)     # the batch cell's frames
@@ -3815,7 +3918,8 @@ def run_multi_card(mt) -> dict:
 # kernel launches a forward of the fused headline at 512 px, forced dense:
 # the fused head's textbook per-box GroupNorm launches no K1; K2 once for
 # the candidate pool, K3 in both NMS stages
-FUSED_PER_FORWARD = {'band_groupnorm': 0, 'segment_topk': 1, 'nms_keep': 2}
+FUSED_PER_FORWARD = {'band_groupnorm': 0, 'segment_topk': 1, 'nms_keep': 2,
+                     'batch_norm_act': 27}
 FUSED_WARMUP, FUSED_STEPS = 2, 5
 
 
@@ -4639,11 +4743,18 @@ def main() -> int:
     edges = not args.kernels_only
     kernels = [check_k1(kc, rng, edges), check_k1_backward(kc, rng, edges),
                check_k2(kc, rng, edges), check_k3(kc, rng, edges),
-               check_k4(kc, rng, edges)]
+               check_k4(kc, rng, edges), check_k5(kc, rng, edges)]
     for k in kernels:
         print(f'kernel {k["name"]}: device {k["device_ms"]:.4f} ms, call '
               f'{k["call_ms"]:.4f} (plain {k["plain_ms"]:.4f}, bound '
               f'{k["bound_ms"]:.4f}) {k["shape"]}', flush=True)
+    k5 = kernels[5]
+    print(f'kernel batch_norm_act: stem {k5["share_of_bound"]:.3f} of the '
+          f'bound ({k5["tb_per_s"]:.2f} TB/s), F.batch_norm + relu_ '
+          f'{k5["library_ms"]:.4f} ms ({k5["library_differ_share"]:.4f} of '
+          f'the elements differ); B4 expand '
+          f'{json.dumps(k5["expand"])}; edges {json.dumps(k5["edges"])}',
+          flush=True)
     print_k2(kernels[2])
     if args.kernels_only:
         kernels[1]['train_maps'] = k1_backward_at(kc, rng, K1B_TRAIN_MAPS)

@@ -70,8 +70,8 @@ class _BN(nn.Module):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(channels, 1e-3)
 
-    def forward(self, x):
-        return self.BatchNorm_0(x)
+    def forward(self, x, act=None, residual=None):
+        return self.BatchNorm_0(x, act, residual)
 
 
 def drop_connect(x: torch.Tensor, rate: float,
@@ -128,28 +128,26 @@ class _MBConv(nn.Module):
         c = b = 0
         if self.expand != 1:
             with span('mbconv:expand'):
-                x = F.silu(self._BN_0(self.Conv_0(x)))
+                x = self._BN_0(self.Conv_0(x), act='silu')
             c = b = 1
         tap = x
         with span('mbconv:depthwise'):
             if self.stride == 2:
                 x = pad_same_s2(x, self.kernel)
-            x = F.silu(getattr(self, f'_BN_{b}')(
-                getattr(self, f'Conv_{c}')(x)))
+            x = getattr(self, f'_BN_{b}')(getattr(self, f'Conv_{c}')(x),
+                                          act='silu')
         with span('mbconv:se'):
             se = spatial.mean_hw(x, self, keepdim=True)
             se = F.silu(getattr(self, f'Conv_{c + 1}')(se))
             x = x * torch.sigmoid(getattr(self, f'Conv_{c + 2}')(se))
         with span('mbconv:project'):
-            x = getattr(self, f'_BN_{b + 1}')(
-                getattr(self, f'Conv_{c + 3}')(x))
-            if self.residual:
-                if (self.drop_rate > 0.0 and self.training
-                        and generator is not None):
-                    x = drop_connect(x, self.drop_rate, generator,
-                                     self.sync)
-                x = x + inputs
-        return x, tap
+            x = getattr(self, f'Conv_{c + 3}')(x)
+            norm = getattr(self, f'_BN_{b + 1}')
+            if (self.residual and self.drop_rate > 0.0 and self.training
+                    and generator is not None):
+                return drop_connect(norm(x), self.drop_rate, generator,
+                                    self.sync) + inputs, tap
+            return norm(x, residual=inputs if self.residual else None), tap
 
 
 class EfficientNet(nn.Module):
@@ -185,12 +183,13 @@ class EfficientNet(nn.Module):
         """``generator`` draws drop-connect in train mode; without it the
         forward is deterministic."""
         endpoints = {}
-        x = F.silu(self.stem_bn(self.stem(pad_same_s2(x.to(self.dtype)))))
+        x = self.stem_bn(self.stem(pad_same_s2(x.to(self.dtype))),
+                         act='silu')
         for si, bi in self.blocks:
             x, tap = getattr(self, f'stage{si}_block{bi}')(x, generator)
             if bi == 0 and si in _TAPS:
                 endpoints[_TAPS[si]] = tap
-        endpoints['C5'] = F.silu(self.top_bn(self.top_conv(x)))
+        endpoints['C5'] = self.top_bn(self.top_conv(x), act='silu')
         return endpoints
 
 

@@ -32,8 +32,8 @@ class _BN(nn.Module):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(channels, 1e-3, momentum=0.999)
 
-    def forward(self, x):
-        return self.BatchNorm_0(x)
+    def forward(self, x, residual=None):
+        return self.BatchNorm_0(x, residual=residual)
 
 
 def _depthwise(ch: int, stride: int, dtype) -> nn.Module:
@@ -69,10 +69,11 @@ class _InvertedResidual(nn.Module):
         for i, kind in enumerate(self.kinds):
             if kind == 'depthwise' and self.stride == 2:
                 x = pad_same_s2(x)
-            x = getattr(self, f'_BN_{i}')(getattr(self, f'Conv_{i}')(x))
-            if kind != 'project':
-                x = relu6(x)
-        return x + inputs if self.residual else x
+            x = getattr(self, f'Conv_{i}')(x)
+            if kind == 'project':
+                return getattr(self, f'_BN_{i}')(
+                    x, residual=inputs if self.residual else None)
+            x = relu6(getattr(self, f'_BN_{i}')(x))
 
 
 class MobileNetV2(nn.Module):

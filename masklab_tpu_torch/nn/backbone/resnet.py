@@ -59,8 +59,8 @@ class _BN(nn.Module):
         super().__init__()
         self.BatchNorm_0 = BatchNorm(channels, eps, use_scale)
 
-    def forward(self, x):
-        return self.BatchNorm_0(x)
+    def forward(self, x, act=None, residual=None):
+        return self.BatchNorm_0(x, act, residual)
 
 
 class _SE(nn.Module):
@@ -98,9 +98,9 @@ class CMBasicBlock(nn.Module):
         self.se = _SE(filters, dtype)
 
     def forward(self, x):
-        preact = torch.relu(self.bn1(x))
+        preact = self.bn1(x, act='relu')
         shortcut = self.sc(preact) if hasattr(self, 'sc') else x
-        y = torch.relu(self.bn2(self.conv1(preact)))
+        y = self.bn2(self.conv1(preact), act='relu')
         return self.se(self.conv2(y)) + shortcut, preact
 
 
@@ -129,7 +129,7 @@ class CMResNet(nn.Module):
     def forward(self, x, generator=None):
         endpoints = {}
         x = self.conv0(self.bn_data(x).to(self.dtype))
-        x = torch.relu(self.bn0(x))
+        x = self.bn0(x, act='relu')
         endpoints['C1'] = x
         x = max_pool(x, 3, 2, 1, site=self)
         for si, blocks in enumerate(STAGE_BLOCKS):
@@ -137,7 +137,7 @@ class CMResNet(nn.Module):
                 x, preact = getattr(self, f'stage{si + 1}_unit{bi + 1}')(x)
                 if bi == 0 and si > 0:
                     endpoints[f'C{si + 1}'] = preact
-        endpoints['C5'] = torch.relu(self.bn1(x))
+        endpoints['C5'] = self.bn1(x, act='relu')
         return endpoints
 
 
@@ -152,7 +152,9 @@ class BottleneckBlock(nn.Module):
     bottleneck; returns (output, the relu after the first 1x1). The stride
     sits on the 3x3 (explicit (1, 1) padding), or on the first 1x1 with
     ``stride_first``; ``use_se`` puts a ChannelSE (``_SE_0``) before the
-    add."""
+    add. Without it the last BatchNorm takes the shortcut and the relu
+    (K5's residual epilogue in eval), so the shortcut is computed before
+    it."""
 
     def __init__(self, in_ch: int, filters: int, stride: int = 1,
                  groups: int = 1, expansion: int = 4, bn_eps: float = 1e-5,
@@ -177,13 +179,16 @@ class BottleneckBlock(nn.Module):
             self._BN_3 = _BN(out_ch, eps=bn_eps)
 
     def forward(self, x):
-        relu1 = torch.relu(self._BN_0(self.Conv_0(x)))
-        y = torch.relu(self._BN_1(self.Conv_1(relu1)))
-        y = self._BN_2(self.Conv_2(y))
-        if hasattr(self, '_SE_0'):
-            y = self._SE_0(y)
+        relu1 = self._BN_0(self.Conv_0(x), act='relu')
+        y = self._BN_1(self.Conv_1(relu1), act='relu')
+        y = self.Conv_2(y)
+        use_se = hasattr(self, '_SE_0')
+        if use_se:
+            y = self._SE_0(self._BN_2(y))
         shortcut = self._BN_3(self.Conv_3(x)) if hasattr(self, 'Conv_3') else x
-        return torch.relu(y + shortcut), relu1
+        if use_se:
+            return torch.relu(y + shortcut), relu1
+        return self._BN_2(y, act='relu', residual=shortcut), relu1
 
 
 class _Stage(nn.Module):
@@ -242,7 +247,7 @@ class ResNet(nn.Module):
 
     def forward(self, x, generator=None):
         endpoints = {}
-        x = torch.relu(self.stem_bn(self.stem(x.to(self.dtype))))
+        x = self.stem_bn(self.stem(x.to(self.dtype)), act='relu')
         endpoints['C1'] = x
         x = max_pool(x, 3, 2, 1, site=self)
         for si in range(self.stages):
@@ -308,7 +313,7 @@ class V2Block(nn.Module):
         self.conv3 = conv2d(filters, out_ch, 1, dtype=dtype)
 
     def forward(self, x):
-        pre = torch.relu(self.preact_bn(x))
+        pre = self.preact_bn(x, act='relu')
         if hasattr(self, 'conv0'):
             shortcut = self.conv0(pre)
         elif self.stride > 1:
@@ -317,9 +322,9 @@ class V2Block(nn.Module):
                         else spatial.subsample_rows(sp, self, x, self.stride))
         else:
             shortcut = x
-        y = torch.relu(self.bn1(self.conv1(pre)))
+        y = self.bn1(self.conv1(pre), act='relu')
         taps = {'preact_relu': pre, '1_relu': y}
-        y = torch.relu(self.bn2(self.conv2(y)))
+        y = self.bn2(self.conv2(y), act='relu')
         return self.conv3(y) + shortcut, taps
 
 
@@ -361,7 +366,7 @@ class ResNetV2(nn.Module):
                     name = self.tap_of.get((si, bi, kind))
                     if name:
                         endpoints[name] = t
-        endpoints['C5'] = torch.relu(self.post_bn(x))
+        endpoints['C5'] = self.post_bn(x, act='relu')
         return endpoints
 
 

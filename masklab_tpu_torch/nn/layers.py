@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda import BandGroupNormFn
+from ..ops.cuda import batch_norm_act as bna
 from . import spatial
 from .sync import all_reduce_sum
 
@@ -266,7 +267,14 @@ class BatchNorm(nn.Module):
     of x and x^2 over the rank's (N, H, W), summed over the ranks with
     their gradients (every rank holds as many rows). Sharded
     (``nn.spatial``), the sums cross every rank of the mesh and divide by
-    the global count (the ranks' blocks may differ in rows)."""
+    the global count (the ranks' blocks may differ in rows).
+
+    ``forward(x, act=None, residual=None)`` also runs what follows the
+    BatchNorm at its call site: ``+ residual``, then ``act`` ('relu' or
+    'silu'). In eval mode on a CUDA tensor the whole chain is K5
+    (``ops.cuda.batch_norm_act``), one read and one write of the map with
+    the plain chain's bits; on the CPU, and in train mode, separate
+    PyTorch ops."""
 
     def __init__(self, channels: int, eps: float = 1e-3,
                  use_scale: bool = True, momentum: float = 0.99):
@@ -281,43 +289,53 @@ class BatchNorm(nn.Module):
         self.register_buffer('running_mean', torch.zeros(channels))
         self.register_buffer('running_var', torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act=None,
+                residual=None) -> torch.Tensor:
+        if not self.training:
+            return self._eval(x, act, residual)
         shape = (1, -1, 1, 1)
         f = x.to(torch.promote_types(x.dtype, torch.float32))
-        if self.training:
-            sp = spatial.active()
-            if sp is not None:
-                c = f.shape[1]
-                count = (f.shape[0] * sp.dp.world * f.shape[3]
-                         * sp.rows(self, f.shape[2]))
-                sums = all_reduce_sum(torch.cat(
-                    [f.sum((0, 2, 3)), f.square().sum((0, 2, 3))]),
-                    sp.world.group) / count
-                mean, mean_sq = sums[:c], sums[c:]
-            elif self.sync is None:
-                mean = f.mean((0, 2, 3))
-                mean_sq = f.square().mean((0, 2, 3))
-            else:
-                c = f.shape[1]
-                sums = all_reduce_sum(torch.cat(
-                    [f.sum((0, 2, 3)), f.square().sum((0, 2, 3))]),
-                    self.sync.group) / (f.numel() // c * self.sync.world)
-                mean, mean_sq = sums[:c], sums[c:]
-            var = torch.clamp(mean_sq - mean.square(), min=0.0)
-            if self.update_stats:
-                with torch.no_grad():
-                    m = self.momentum
-                    self.running_mean.copy_(m * self.running_mean
-                                            + (1 - m) * mean)
-                    self.running_var.copy_(m * self.running_var
-                                           + (1 - m) * var)
+        sp = spatial.active()
+        if sp is not None:
+            c = f.shape[1]
+            count = (f.shape[0] * sp.dp.world * f.shape[3]
+                     * sp.rows(self, f.shape[2]))
+            sums = all_reduce_sum(torch.cat(
+                [f.sum((0, 2, 3)), f.square().sum((0, 2, 3))]),
+                sp.world.group) / count
+            mean, mean_sq = sums[:c], sums[c:]
+        elif self.sync is None:
+            mean = f.mean((0, 2, 3))
+            mean_sq = f.square().mean((0, 2, 3))
         else:
-            mean, var = self.running_mean, self.running_var
+            c = f.shape[1]
+            sums = all_reduce_sum(torch.cat(
+                [f.sum((0, 2, 3)), f.square().sum((0, 2, 3))]),
+                self.sync.group) / (f.numel() // c * self.sync.world)
+            mean, mean_sq = sums[:c], sums[c:]
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1 - m) * var)
+        mul = self._mul(var)
+        y = (f - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return bna.epilogue(y.to(x.dtype), residual, act)
+
+    def _eval(self, x: torch.Tensor, act, residual) -> torch.Tensor:
+        """The running statistics' chain (``ops.cuda.batch_norm_act``)."""
+        return bna.batch_norm_act(x, self.running_mean,
+                                  self._mul(self.running_var), self.bias,
+                                  residual, act)
+
+    def _mul(self, var: torch.Tensor) -> torch.Tensor:
         mul = torch.rsqrt(var + self.eps)
         if self.weight is not None:
             mul = mul * self.weight
-        y = (f - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        return mul
 
 
 @contextlib.contextmanager

@@ -6,7 +6,7 @@ its kernel for a CUDA tensor, counting the launches.
 """
 from __future__ import annotations
 
-from . import groupnorm, nms_keep, paste_stats, topk
+from . import batch_norm_act, groupnorm, nms_keep, paste_stats, topk
 from .groupnorm import (BandGroupNormFn, band_groupnorm,
                         band_groupnorm_backward, band_groupnorm_backward_plain,
                         band_groupnorm_plain)
@@ -20,7 +20,8 @@ _COUNTERS = {'band_groupnorm': (groupnorm, 'launches'),
              'band_groupnorm_backward': (groupnorm, 'backward_launches'),
              'segment_topk': (topk, 'launches'),
              'nms_keep': (nms_keep, 'launches'),
-             'paste_stats': (paste_stats, 'launches')}
+             'paste_stats': (paste_stats, 'launches'),
+             'batch_norm_act': (batch_norm_act, 'launches')}
 
 
 def launch_counts() -> dict:

@@ -25,14 +25,17 @@ PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(PACKAGE_DIR, '_build')
 
-# source -> extra nvcc flags. nms_keep.cu and paste_stats.cu must not
-# contract a*b+c into an FMA: the IoU has to round exactly like
-# ops/boxes.py iou_yxyx, the paste like its plain version's GEMMs.
+# source -> extra nvcc flags. nms_keep.cu, paste_stats.cu and
+# batch_norm_act.cu must not contract a*b+c into an FMA: the IoU has to
+# round exactly like ops/boxes.py iou_yxyx, the paste like its plain
+# version's GEMMs, the BatchNorm like PyTorch's separate `* mul` and
+# `+ bias` kernels.
 SOURCES = {
     'band_groupnorm.cu': [],
     'segment_topk.cu': [],
     'nms_keep.cu': ['-fmad=false'],
     'paste_stats.cu': ['-fmad=false'],
+    'batch_norm_act.cu': ['-fmad=false'],
 }
 ARCH_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a']
 COMMON_FLAGS = ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
@@ -53,6 +56,7 @@ SIGNATURES = {
     'mlk_nms_keep_init': [],
     'mlk_paste_stats': [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _P],
+    'mlk_batch_norm_act': [_P, _P, _P, _P, _P, _P, _L, _I, _L, _I, _I, _P],
 }
 
 _lock = threading.Lock()

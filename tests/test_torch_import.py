@@ -200,7 +200,7 @@ def test_unported_backbone_raises():
 
 @pytest.mark.parametrize('call', ['band_groupnorm', 'segment_topk',
                                   'segment_topk_rows', 'nms_keep_mask',
-                                  'paste_reduce'])
+                                  'paste_reduce', 'batch_norm_act'])
 def test_wrappers_refuse_other_devices(call):
     """A wrapper takes the plain version only for a CPU tensor; any other
     device launches the kernel or raises, never falls back."""
@@ -220,6 +220,9 @@ def test_wrappers_refuse_other_devices(call):
             *[torch.empty(2, 8, **meta)] * 5,
             torch.empty(2, 8, 28, 28, **meta),
             torch.empty(2, 64, 96, dtype=torch.bool, **meta)),
+        'batch_norm_act': lambda: kc.batch_norm_act.batch_norm_act(
+            torch.empty(2, 8, 4, 4, **meta), *[torch.empty(8, **meta)] * 3,
+            act='relu'),
     }
     before = kc.launch_counts()
     with pytest.raises(ValueError, match='unsupported device'):
@@ -237,4 +240,4 @@ def test_cpu_wrappers_take_plain_and_count_nothing():
     assert kc.launch_counts() == {'band_groupnorm': 0,
                                   'band_groupnorm_backward': 0,
                                   'segment_topk': 0, 'nms_keep': 0,
-                                  'paste_stats': 0}
+                                  'paste_stats': 0, 'batch_norm_act': 0}

@@ -769,3 +769,327 @@ def test_paste_reduce_refuses_wide_masks(cuda):
     with pytest.raises(ValueError, match='columns wide'):
         kc.paste_reduce(*args, onehot)
     assert kc.launch_counts()['paste_stats'] == before
+
+
+# ---- K5: eval BatchNorm with its residual add and activation ----
+
+def _bn_module(c, seed, use_scale=True, eps=1e-3):
+    """A BatchNorm with seeded parameters and running statistics."""
+    from masklab_tpu_torch.nn.layers import BatchNorm
+    bn = BatchNorm(c, eps, use_scale)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        if bn.weight is not None:
+            bn.weight.uniform_(0.5, 1.5, generator=g)
+        bn.bias.uniform_(-0.3, 0.3, generator=g)
+        bn.running_mean.uniform_(-0.5, 0.5, generator=g)
+        bn.running_var.uniform_(0.2, 2.0, generator=g)
+    return bn
+
+
+def _chain_before_k5(bn, x):
+    """``BatchNorm.forward`` as written before K5 (single device, no sync),
+    with its running-statistics update in train mode."""
+    shape = (1, -1, 1, 1)
+    f = x.to(torch.promote_types(x.dtype, torch.float32))
+    if bn.training:
+        mean = f.mean((0, 2, 3))
+        mean_sq = f.square().mean((0, 2, 3))
+        var = torch.clamp(mean_sq - mean.square(), min=0.0)
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+            bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps)
+    if bn.weight is not None:
+        mul = mul * bn.weight
+    y = (f - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    return y.to(x.dtype)
+
+
+def _site_before_k5(bn, x, act, residual):
+    """The call sites' chains as written before K5: ``relu(bn(x))``,
+    ``F.silu(bn(x))``, ``bn(x) + r``, ``relu(bn(x) + r)``."""
+    import torch.nn.functional as F
+    y = _chain_before_k5(bn, x)
+    if residual is not None:
+        y = y + residual
+    if act == 'relu':
+        y = torch.relu(y)
+    elif act == 'silu':
+        y = F.silu(y)
+    return y
+
+
+# site -> (act, with a residual)
+K5_SITES = {'bn': (None, False), 'relu(bn)': ('relu', False),
+            'silu(bn)': ('silu', False), 'bn + r': (None, True),
+            'relu(bn + r)': ('relu', True)}
+
+
+def _k5_inputs(seed, shape, dtype, layout, device='cpu', residual=True):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(shape, generator=g, device=device) * 3 + 0.5).to(dtype)
+    r = (torch.randn(shape, generator=g, device=device) * 2).to(dtype)
+    if layout == 'channels_last':
+        x = x.contiguous(memory_format=torch.channels_last)
+        r = r.contiguous(memory_format=torch.channels_last)
+    return x, (r if residual else None)
+
+
+@pytest.mark.parametrize('use_scale', [True, False])
+@pytest.mark.parametrize('mode', ['eval', 'train'])
+@pytest.mark.parametrize('layout', ['channels_last', 'contiguous'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('site', list(K5_SITES))
+def test_batch_norm_act_plain_path_matches_chain(site, dtype, layout, mode,
+                                                 use_scale):
+    """``BatchNorm.forward(x, act=..., residual=...)`` on the CPU equals the
+    call site's chain as written before K5 bit for bit, in its layout; in
+    train mode also the running statistics and the gradients of x, the
+    residual and the parameters."""
+    act, with_res = K5_SITES[site]
+    train = mode == 'train'
+    x, r = _k5_inputs(1, (3, 24, 7, 9), getattr(torch, dtype), layout,
+                      residual=with_res)
+    got_bn, want_bn = (_bn_module(24, 0, use_scale).train(train)
+                       for _ in range(2))
+    leaves = []
+    for bn in (got_bn, want_bn):
+        xi = x.detach().clone().requires_grad_(train)
+        ri = None if r is None else r.detach().clone().requires_grad_(train)
+        leaves.append((xi, ri, bn))
+    (gx, gr, _), (wx, wr, _) = leaves
+    got = got_bn(gx, act=act, residual=gr)
+    want = _site_before_k5(want_bn, wx, act, wr)
+    assert got.dtype == want.dtype
+    assert got.stride() == want.stride()
+    assert torch.equal(got, want)
+    assert torch.equal(got_bn.running_mean, want_bn.running_mean)
+    assert torch.equal(got_bn.running_var, want_bn.running_var)
+    if train:
+        w = torch.linspace(-1, 1, got.numel()).reshape(got.shape)
+        (got.float() * w).sum().backward()
+        (want.float() * w).sum().backward()
+        pairs = [(gx.grad, wx.grad), (got_bn.bias.grad, want_bn.bias.grad)]
+        if use_scale:
+            pairs.append((got_bn.weight.grad, want_bn.weight.grad))
+        if gr is not None:
+            pairs.append((gr.grad, wr.grad))
+        for a, b in pairs:
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('site', list(K5_SITES))
+def test_batch_norm_act_cpu_wrapper_takes_plain(site):
+    """On the CPU the wrapper is its plain version, launching and counting
+    nothing; an unknown activation raises."""
+    from masklab_tpu_torch.ops.cuda import batch_norm_act as bna
+    act, with_res = K5_SITES[site]
+    x, r = _k5_inputs(2, (2, 16, 5, 6), torch.bfloat16, 'channels_last',
+                      residual=with_res)
+    bn = _bn_module(16, 3).eval()
+    kc.reset_launch_counts()
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    got = bna.batch_norm_act(x, bn.running_mean, mul, bn.bias, r, act)
+    with torch.no_grad():
+        assert torch.equal(got, bn(x, act=act, residual=r))
+        assert torch.equal(got, _site_before_k5(bn, x, act, r))
+    assert kc.launch_counts()['batch_norm_act'] == 0
+    with pytest.raises(ValueError, match='act must be one of'):
+        bn(x, act='gelu')
+
+
+@pytest.mark.parametrize('use_scale', [True, False])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('site', list(K5_SITES))
+def test_batch_norm_act_fn_gradients_are_plain_chains(monkeypatch, site,
+                                                      dtype, use_scale):
+    """``BatchNormActFn``'s backward (K5 under autograd) gives the plain
+    chain's gradients of x, the residual, the weight and the bias bit for
+    bit, and none for the running mean; its forward's launch is replaced
+    by the plain version here, which has no card."""
+    from masklab_tpu_torch.ops.cuda import batch_norm_act as bna
+    monkeypatch.setattr(bna, '_launch', bna.batch_norm_act_plain)
+    act, with_res = K5_SITES[site]
+    x, r = _k5_inputs(12, (3, 24, 7, 9), getattr(torch, dtype),
+                      'channels_last', residual=with_res)
+    bn = _bn_module(24, 13, use_scale).eval()
+    w = torch.linspace(-1, 1, x.numel()).reshape(x.shape)
+    grads = []
+    for fn in (bna.BatchNormActFn.apply, bna.batch_norm_act_plain):
+        xi = x.detach().clone().requires_grad_(True)
+        ri = None if r is None else r.detach().clone().requires_grad_(True)
+        bn.zero_grad(set_to_none=True)
+        y = fn(xi, bn.running_mean, bn._mul(bn.running_var), bn.bias, ri,
+               act)
+        (y.float() * w).sum().backward()
+        grads.append([y.detach(), xi.grad, bn.bias.grad]
+                     + ([] if ri is None else [ri.grad])
+                     + ([bn.weight.grad] if use_scale else []))
+    assert bn.running_mean.grad is None
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want)
+
+
+def _k5_launch(x, bn, act, r):
+    from masklab_tpu_torch.ops.cuda import batch_norm_act as bna
+    mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
+    before = kc.launch_counts()['batch_norm_act']
+    got = bna.batch_norm_act(x, bn.running_mean, mul, bn.bias, r, act)
+    torch.cuda.synchronize()
+    assert kc.launch_counts()['batch_norm_act'] == before + 1
+    want = bna.batch_norm_act_plain(x, bn.running_mean, mul, bn.bias, r, act)
+    return got, want
+
+
+# name -> (C, H, W) at batch 16: the stem's and the B4 expand's channels, the
+# widest B4 maps, and odd C (the scalar path); 17x30 holds no whole vector a
+# plane in NCHW (the planar scalar path)
+K5_MAPS = {'C=8 at 270x480': (8, 270, 480),
+           'C=64 at 270x480 (the stem)': (64, 270, 480),
+           'C=144 at 135x240': (144, 135, 240),
+           'C=1792 at 17x30': (1792, 17, 30),
+           'C=2688 at 17x30': (2688, 17, 30),
+           'C=37 at 68x120 (odd C)': (37, 68, 120),
+           'C=3 at 17x30': (3, 17, 30)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('layout', ['channels_last', 'contiguous'])
+@pytest.mark.parametrize('with_res', [False, True])
+@pytest.mark.parametrize('act', [None, 'relu', 'silu'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
+@pytest.mark.parametrize('name', list(K5_MAPS))
+def test_batch_norm_act_kernel_matches_plain(cuda, name, dtype, act,
+                                             with_res, layout):
+    """``torch.equal`` to the plain chain on the card, in one launch, the
+    output in the map's layout."""
+    c, h, w = K5_MAPS[name]
+    x, r = _k5_inputs(4, (16, c, h, w), getattr(torch, dtype), layout, cuda,
+                      with_res)
+    got, want = _k5_launch(x, _bn_module(c, 5).to(cuda), act, r)
+    assert got.stride() == x.stride()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('layout', ['channels_last', 'contiguous'])
+@pytest.mark.parametrize('act', [None, 'relu', 'silu'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16', 'float16'])
+def test_batch_norm_act_kernel_unaligned(cuda, dtype, act, layout):
+    """A map one element past a 16-byte boundary (a view with a storage
+    offset) takes the scalar path, with the same bits."""
+    n, c, h, w = 2, 64, 9, 16
+    dt = getattr(torch, dtype)
+    base, r = _k5_inputs(6, (n * c * h * w + 1,), dt, 'contiguous', cuda)
+    if layout == 'channels_last':
+        x = base[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+        r = r[1:].view(n, h, w, c).permute(0, 3, 1, 2)
+    else:
+        x, r = base[1:].view(n, c, h, w), r[1:].view(n, c, h, w)
+    fmt = (torch.channels_last if layout == 'channels_last'
+           else torch.contiguous_format)
+    assert x.is_contiguous(memory_format=fmt) and x.data_ptr() % 16
+    got, want = _k5_launch(x, _bn_module(c, 7).to(cuda), act, r)
+    assert torch.equal(got, want)
+
+
+def _seeded_norms(model, seed):
+    from masklab_tpu_torch.nn.layers import BatchNorm
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                if m.weight is not None:
+                    m.weight.uniform_(0.5, 1.5, generator=g)
+                m.bias.uniform_(-0.3, 0.3, generator=g)
+                m.running_mean.uniform_(-0.3, 0.3, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    return model
+
+
+# body -> K5 launches a forward: one a BatchNorm
+K5_BODIES = {'resnet50': 53, 'efficientnetb4': 96}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('body', list(K5_BODIES))
+def test_batch_norm_act_body_forward(cuda, body, monkeypatch):
+    """A bf16 body's eval forward launches K5 once a BatchNorm, under
+    ``inference_mode`` and with autograd on alike; its endpoints equal the
+    same forward with every BatchNorm's chain in plain PyTorch ops on the
+    card (same layouts, so the same convolutions), which launches none."""
+    from masklab_tpu_torch.nn.backbone.efficientnet import efficientnet
+    from masklab_tpu_torch.nn.backbone.resnet import resnet50
+    from masklab_tpu_torch.ops.cuda import batch_norm_act as bna
+    make = {'resnet50': lambda: resnet50(torch.bfloat16),
+            'efficientnetb4': lambda: efficientnet('efficientnetb4',
+                                                   torch.bfloat16)}[body]
+    model = _seeded_norms(make(), 8).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = (torch.rand(2, 3, 96, 160, generator=g, device=cuda) * 2 - 1
+         ).contiguous(memory_format=torch.channels_last)
+    kc.reset_launch_counts()
+    with torch.inference_mode():
+        got = model(x)
+    torch.cuda.synchronize()
+    assert kc.launch_counts()['batch_norm_act'] == K5_BODIES[body]
+    graphed = model(x)
+    assert kc.launch_counts()['batch_norm_act'] == 2 * K5_BODIES[body]
+    monkeypatch.setattr(bna, 'batch_norm_act', bna.batch_norm_act_plain)
+    want = model(x)
+    assert kc.launch_counts()['batch_norm_act'] == 2 * K5_BODIES[body]
+    assert sorted(got) == sorted(want) == sorted(graphed)
+    for k in got:
+        assert torch.isfinite(got[k]).all(), k
+        assert torch.equal(got[k], want[k].detach()), k
+        assert torch.equal(graphed[k].detach(), want[k].detach()), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('act', [None, 'relu', 'silu'])
+def test_batch_norm_act_autograd_and_layouts(cuda, act):
+    """Train mode launches nothing. An eval call with autograd on launches
+    K5 once and gives the plain chain's output and gradients (x, residual,
+    weight, bias) bit for bit; so do NCHW maps without autograd; a map in
+    neither layout raises, launching nothing."""
+    from masklab_tpu_torch.ops.cuda import batch_norm_act as bna
+    bn = _bn_module(64, 10).to(cuda)
+    x, r = _k5_inputs(11, (4, 64, 12, 20), torch.bfloat16, 'channels_last',
+                      cuda)
+    kc.reset_launch_counts()
+    bn.train()
+    bn(x, act=act, residual=r)
+    assert kc.launch_counts()['batch_norm_act'] == 0
+    bn.eval()
+    w = torch.linspace(-1, 1, x.numel(), device=cuda).reshape(x.shape)
+    outs = []
+    for fn in (lambda xi, ri: bn(xi, act=act, residual=ri),
+               lambda xi, ri: bna.batch_norm_act_plain(
+                   xi, bn.running_mean, bn._mul(bn.running_var), bn.bias,
+                   ri, act)):
+        xi = x.detach().clone().requires_grad_(True)
+        ri = r.detach().clone().requires_grad_(True)
+        bn.zero_grad(set_to_none=True)
+        y = fn(xi, ri)
+        (y.float() * w).sum().backward()
+        outs.append((y.detach(), xi.grad, ri.grad, bn.weight.grad,
+                     bn.bias.grad))
+    assert kc.launch_counts()['batch_norm_act'] == 1
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    with torch.no_grad():
+        nchw = bn(x.contiguous(), act=act, residual=r.contiguous())
+    assert kc.launch_counts()['batch_norm_act'] == 2
+    assert nchw.is_contiguous() and torch.equal(nchw, outs[0][0])
+    with pytest.raises(ValueError, match='channels_last- or NCHW'):
+        with torch.no_grad():
+            bn(x[:, :, :, ::2])
+    with pytest.raises(ValueError, match='layout'):
+        with torch.no_grad():
+            bn(x, residual=r.contiguous())
+    assert kc.launch_counts()['batch_norm_act'] == 2
